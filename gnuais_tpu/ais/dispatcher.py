@@ -1,7 +1,7 @@
 """Frame -> output dispatcher (the equivalent of protodec_getdata,
 protodec.c:896-986).
 
-Takes CRC-verified payload frames (from the golden model or the TPU
+Takes CRC-verified payload frames (from the golden model or the device
 pipeline) and produces, per message:
   - the stdout display line  ``ch A type 1 mmsi 000000001: ... (!AIVDM...)``
   - the full !AIVDM sentence list for serial/socket/DB sinks

@@ -1,5 +1,5 @@
-"""Configuration: gnuais-compatible config file + CLI, with TPU
-extensions.
+"""Configuration: gnuais-compatible config file + CLI, with
+accelerator extensions.
 
 Implements the reference's two-layer config (cfg.c, cfgfile.c):
  - directive table with case-insensitive PREFIX matching (strncasecmp
@@ -10,8 +10,8 @@ Implements the reference's two-layer config (cfg.c, cfgfile.c):
  - uplink directives ``Uplink <name> json <url>``;
  - soundchannels mono/both/left/right.
 
-TPU extensions (new knobs, all optional): streams, blocklen,
-frameslots, meshshape, backend (exact|fast), iq input mode.
+Accelerator extensions (new knobs, all optional): streams, blocklen,
+frameslots, meshshape, backend (exact|fast|fused), iq input mode.
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ class Config:
     serial_port: Optional[str] = None
     skip_type: List[int] = field(default_factory=list)
 
-    # TPU extensions
+    # accelerator extensions
     streams: int = 1
     blocklen: int = 49_152
     frameslots: int = 32
@@ -212,7 +212,7 @@ _DIRECTIVES = [
     ("serialport", lambda c, a: setattr(c, "serial_port", a[1])),
     ("serial_port", lambda c, a: setattr(c, "serial_port", a[1])),
     ("skip_type", _set_skip_type),
-    # --- TPU extensions ---
+    # --- accelerator extensions ---
     ("streams", lambda c, a: setattr(c, "streams", int(a[1]))),
     ("blocklen", lambda c, a: setattr(c, "blocklen", int(a[1]))),
     ("frameslots", lambda c, a: setattr(c, "frameslots", int(a[1]))),

@@ -92,7 +92,7 @@ SOUND_CHANNELS_LEFT = 3
 SOUND_CHANNELS_RIGHT = 4
 
 # Default processing block: 1024 frames like the reference main loop
-# (ais.c:179-182); the TPU pipeline uses much larger blocks internally.
+# (ais.c:179-182); the batch pipeline uses much larger blocks internally.
 DEFAULT_BLOCK_FRAMES = 1024
 
 # Precomputed byte-wise CRC table for the reflected X.25 polynomial.

@@ -1,6 +1,6 @@
 """ALSA soundcard capture via ctypes -> libasound.
 
-TPU-native equivalent of the reference's live capture path
+Equivalent of the reference's live capture path
 (input.c:39-126): S16_LE interleaved PCM, 48 kHz, 1-2 channels, period
 sized near 4096 frames, blocking ``snd_pcm_readi`` with overrun
 (-EPIPE) recovery through ``snd_pcm_prepare``.  Implements the same

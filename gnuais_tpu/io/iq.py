@@ -198,7 +198,7 @@ class IqStreamReader:
     def _iq_slice(self, f0: int, f1: int):
         """Split I/Q rails (i, q), each float32 [channels, (f1-f0)*
         decim], for output frames [f0, f1).  Split on the host: the
-        TPU plugin has no complex64."""
+        device front-end works on real rails."""
         lo, hi = f0 * self._vpf, f1 * self._vpf
         raw = np.asarray(self._mm[lo:hi], dtype=np.float32)
         fr = raw.reshape(-1, self.channels, 2)      # [n_iq, ch, 2]

@@ -1,7 +1,9 @@
 """Native host runtime (C++ via ctypes).
 
-Builds gnuais_native.cpp on demand into a cached shared object and
-exposes:
+Builds gnuais_native.cpp on demand into a cached shared object (keyed
+by a hash of the source and the build flags, and built for the generic
+x86-64/aarch64 target, so a library copied from another host is never
+loaded stale or with foreign CPU instructions) and exposes:
 
   drain_frames(words, lens, counts) -> [(stream, payload_bits, len, ok)]
   HdlcDecoder: streaming bit-level deframer with counters
@@ -13,6 +15,7 @@ Falls back cleanly (``available() == False``) when no compiler exists.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -24,31 +27,34 @@ import numpy as np
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "gnuais_native.cpp"
 _BUILD = _HERE / "build"
-_LIB_PATH = _BUILD / "libgnuais_native.so"
+_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lib = None
 _lock = threading.Lock()
 
 
+def _lib_path() -> Path:
+    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode())
+    return _BUILD / f"libgnuais_native-{key.hexdigest()[:16]}.so"
+
+
 def _build() -> Optional[Path]:
     try:
+        path = _lib_path()
+        if path.exists():
+            return path
         _BUILD.mkdir(exist_ok=True)
-        # rebuild when the source is newer than the cached object
-        if (_LIB_PATH.exists()
-                and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime):
-            return _LIB_PATH
         # build to a process-unique temp name and rename atomically so
         # concurrent first-use builds (multi-host workers) never dlopen
         # a half-written library
         tmp = _BUILD / f".libgnuais_native.{os.getpid()}.so"
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-o", str(tmp), str(_SRC)]
+        cmd = ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)]
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, path)
     except (OSError, subprocess.CalledProcessError,
             subprocess.TimeoutExpired):
         return None
-    return _LIB_PATH
+    return path
 
 
 def _load():

@@ -5,5 +5,5 @@ Layout:
   demod.py          exact DPLL clock recovery + HDLC deframer as scans
   crc.py            batched CRC-16/X.25 for device-side frame checking
   discriminator.py  raw-IQ FM discriminator + decimation front-end
-  fused.py          Pallas fused FIR+DPLL(+HDLC bitstream) fast path
+  fused.py          GPU kernel: FIR+DPLL+slotting+HDLC in one pass
 """

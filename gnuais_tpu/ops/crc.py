@@ -90,11 +90,11 @@ def crc_check_frames(words: jax.Array, payload_len: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Linear (GF(2)) CRC check: the TPU-native formulation.
+# Linear (GF(2)) CRC check: a gather-free formulation.
 #
 # The byte-table CRC is an affine map over GF(2): final_crc =
 # INIT_PART(n_bytes) XOR (XOR over set data bits of a per-position
-# 16-bit weight).  Two observations make this gather-free on TPU:
+# 16-bit weight).  Two observations make this gather-free:
 #
 #  * the HDLC shift register is END-ALIGNED (newest bit = LSB of the
 #    last word), and a bit's weight depends only on its distance from
@@ -154,7 +154,7 @@ _CRC_TARGET = 0xF0B8    # residue 0x0f47 complemented (protodec.c:166)
 
 
 def _build_planes() -> np.ndarray:
-    """W8 re-laid-out as bit planes for the MXU: PLANES[p, r*16 + j] =
+    """W8 re-laid-out as bit planes for one matmul: PLANES[p, r*16 + j] =
     bit j of W8[r, p], float32 0/1."""
     planes = np.zeros((REG_BITS, 8 * 16), dtype=np.float32)
     for r in range(8):
@@ -175,11 +175,12 @@ def crc_check_frames_linear(words: jax.Array,
     words: [F, REG_WORDS] uint32; payload_len: [F] int32.
 
     XOR over GF(2) = per-bit-plane parity = (sum mod 2), so the whole
-    reduction is ONE f32 matmul on the MXU: bits [F, 480] x planes
+    reduction is ONE f32 matmul: bits [F, 480] x planes
     [480, 128] (all 8 payload_len%8 hypotheses x 16 CRC bits at once;
-    sums <= 480 are exact in f32), then a per-row hypothesis select.
-    This replaces the per-row [F, 480] weight gather + 32-bit XOR
-    reduce, which lowered to slow scalar gathers on TPU.
+    sums <= 480 are exact in f32), then a per-row hypothesis select,
+    instead of a per-row [F, 480] weight gather + 32-bit XOR reduce.
+    The product asks for HIGHEST precision: its 0/1 operands and sums
+    are exact in TF32 too, but exactness should not rest on that.
     """
     f = words.shape[0]
     # bits by position-from-end: word 14 bit 0 is p=0 -> reverse words,
@@ -193,6 +194,7 @@ def crc_check_frames_linear(words: jax.Array,
     inframe = p[None, :] < (payload_len + 22)[:, None]
     bitsf = jnp.where(inframe, bits, 0).astype(jnp.float32)
     sums = jnp.dot(bitsf, jnp.asarray(_PLANES),
+                   precision=jax.lax.Precision.HIGHEST,
                    preferred_element_type=jnp.float32)     # [F, 128]
     parity = (sums.astype(jnp.int32) & 1).reshape(f, 8, 16)
     weights = (1 << jnp.arange(16, dtype=jnp.uint32))

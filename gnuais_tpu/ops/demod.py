@@ -3,8 +3,7 @@
 Semantics are bit-identical to the reference's per-sample loops
 (receiver.c:109-135 DPLL/slicer/NRZI; protodec.c:988-1122 HDLC), but
 vectorized over a ``streams`` axis: time stays sequential (it is a true
-recurrence), streams are the data-parallel axis that fills the VPU
-lanes.  Two phases:
+recurrence), streams are the data-parallel axis.  Two phases:
 
 1. ``dpll_scan``   — lax.scan over samples; emits (valid, bit) lanes.
 2. ``compact_bits``— scatter emitted bits to dense per-stream bit rows
@@ -223,11 +222,12 @@ def hdlc_scan(bitrows: jax.Array, slot_valid: jax.Array,
     pos_rows (optional, [S, M] int32) carries per-bit sample indices so
     emitted frames record their data-start and stop positions
     (time-parallel dedup / emission-order coordinates).
-    lost2_lo/lost2_hi (optional scalars): count wrong-size stop events
-    only when their sample position lies in [lo, hi) — overlap-decode
-    callers (timepar lanes, mesh shards) gate on their own region so
-    the union over shards counts each event exactly once, matching the
-    sequential chain's lostframes2 (protodec.c:1107-1112).
+    lost2_lo/lost2_hi (optional, scalars or per-stream [S]): count
+    wrong-size stop events only when their sample position lies in
+    [lo, hi) — overlap-decode callers (timepar lanes, mesh shards) gate
+    on their own region so the union over shards counts each event
+    exactly once, matching the sequential chain's lostframes2
+    (protodec.c:1107-1112).
     """
     if pos_rows is None:
         pos_rows = jnp.zeros_like(bitrows)
@@ -479,22 +479,17 @@ def compact_candidates(frames: FrameBatch, cand_valid: jax.Array,
     FrameBatch slots.  cand_valid [S, K] bool; cw [S, K, REG_WORDS];
     cl/cs/ce [S, K]; lost2/over [S] counters to accumulate.
 
-    TPU-native formulation: a slot-scatter serializes on TPU (measured
-    ~6 ms/block at S=1024, K=384 — as long as the whole fused decode
-    kernel), so the compaction is expressed as a batched one-hot MATMUL
-    instead: hit[s, k, j] = (candidate k lands in slot j), and the
-    small per-candidate fields ride ``einsum('skj,skd->sjd')`` onto the
-    MXU as 8-bit byte planes, INCLUDING the candidate's own index k —
-    the register words then come from one ``take_along_axis`` gather
-    over the <= frame_slots landed destinations (byte-splitting the 15
-    words into 60 planes of a ~99%-empty [S, K] tensor dominated the
-    old feature build: dropping it bought ~36% of the whole decode
-    step).  Exactness: at most one candidate hits a slot (destinations
-    are strictly increasing), so every einsum output element is a
-    SINGLE product of two <= 8-bit-exact values — bf16 represents both
-    operands and the product exactly and no accumulation ever rounds;
-    the default one-pass bf16 lowering corrupted 16-bit pieces on real
-    TPUs, hence the 8-bit split."""
+    The compaction is a batched one-hot product instead of a slot
+    scatter: hit[s, k, j] = (candidate k lands in slot j), and the small
+    per-candidate fields ride ``einsum('skj,skd->sjd')`` as 8-bit byte
+    planes, INCLUDING the candidate's own index k — the register words
+    then come from one ``take_along_axis`` gather over the <=
+    frame_slots landed destinations.  Exactness: at most one candidate
+    hits a slot (destinations are strictly increasing), so every einsum
+    output element is a SINGLE product of two <= 8-bit-exact values —
+    bf16 represents both operands and the product exactly and no
+    accumulation ever rounds (checked on the GPU by the device-CRC
+    phase of chip_smoke.py)."""
     s, k = cand_valid.shape
     # the candidate's own index rides through 2 bf16 byte planes below;
     # a larger K would wrap src and gather the wrong register words
@@ -525,14 +520,11 @@ def compact_candidates(frames: FrameBatch, cand_valid: jax.Array,
             acc = acc | (p.astype(jnp.uint32) << (8 * i))
         return acc
 
-    # The register words (4W = 60 byte planes of [S, K]) dominated the
-    # einsum's feature build — ~3/4 of the compaction's VPU time went
-    # into byte-splitting a tensor that is ~99% empty slots.  Instead:
     # einsum only the small per-candidate fields PLUS the candidate's
     # own index k (2 bytes, exact in bf16), then fetch each landed
     # slot's words with one take_along_axis gather over the F (<= 64)
-    # destinations.  Exactness unchanged: every einsum output element
-    # is still a single product of <= 8-bit-exact values.
+    # destinations, instead of byte-splitting 60 planes of register
+    # words of a ~99%-empty [S, K] tensor.
     kb = bytes_of(jnp.broadcast_to(jnp.arange(k, dtype=jnp.int32)[None],
                                    (s, k)), 2)
     feats = jnp.concatenate(

@@ -10,12 +10,11 @@ and decimated to the 48 kHz audio the decode chain expects
 All batched over [streams, time]; carry = last IQ sample (for the
 phase difference) + decimation FIR history.
 
-TPU-native formulation: the I and Q rails are SEPARATE float32 arrays
-and the anti-alias decimator is a polyphase sum of shifted slices —
-this backend's plugin implements neither complex64 arithmetic nor
-conv_general_dilated, and neither is needed: the phase-difference
+The I and Q rails are SEPARATE float32 arrays and the anti-alias
+decimator is a polyphase sum of shifted slices — neither complex64
+arithmetic nor conv_general_dilated is needed: the phase-difference
 product is four real multiplies, and a strided FIR is ntaps
-fused multiply-adds over statically-strided views.
+multiply-adds over statically-strided views.
 """
 
 from __future__ import annotations

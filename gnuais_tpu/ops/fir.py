@@ -8,9 +8,9 @@ overlap-save halo.  Here the filter is a batched array program over
 Two implementations:
 
 * ``fir_exact``: 36 explicit float32 multiply-adds in the reference's
-  accumulation order — bit-identical rounding to the C code (modulo
-  subnormal flushing on TPU, which cannot flip the sign-slicer for
-  these taps).  This is the parity path.
+  accumulation order — bit-identical rounding to the C code (checked
+  bitwise against the NumPy model on the GPU, subnormal taps included).
+  This is the parity path.
 * ``fir_conv``: ``lax.conv_general_dilated`` form that XLA can fuse and
   tile freely — the throughput path when bit-exactness is not needed.
 

@@ -1,512 +1,128 @@
-"""Pallas TPU kernels: the throughput path.
+"""Fused decode kernel for the GPU: FIR + DPLL + bit slotting + HDLC.
 
-The exact XLA `lax.scan` DPLL pays per-step dispatch overhead; this
-kernel runs the same integer recurrence as an in-VMEM `fori_loop` over
-``[8, 128]`` stream tiles (streams on VPU lanes, time sequential in
-registers), streaming sample chunks HBM->VMEM via the grid.  Semantics
-are bit-identical to ops.demod.dpll_scan.
+The decode is thousands of independent per-sample recurrences, one per
+stream.  XLA's plain chain (ops/fir.fir_exact -> ops/demod.dpll_scan ->
+group_reduce_bits -> hdlc_scan) runs time as ``lax.scan`` steps — one
+loop iteration with its own kernel launches per sample or bit slot —
+and moves the per-sample filtered and bit arrays through HBM.  Here one
+Pallas kernel (Triton route) runs the whole chain:
 
-Layout: filtered samples are transposed to ``[T, 8, 128]`` (time-major
-tiles); S is padded to 1024 lanes.  Output is an int32 tile stream
-encoding ``2*valid + bit``; the existing compaction + HDLC scan
-consumes it unchanged.
+* each program owns ``STREAM_BLOCK`` streams, one stream per thread;
+* the time loop runs inside the program, four samples (one bit slot)
+  per iteration — GPU blocks run in no order, so nothing is carried
+  across the grid;
+* FIR window, DPLL, slotting and HDLC state stay in registers;
+* a finished frame is stored straight into the stream's next slot of
+  the dense ``[S, frame_slots, REG_WORDS]`` buffer (a plain indexed
+  store: the thread owns its stream).
 
-See /opt/skills/guides/pallas_guide.md for the kernel idioms used here
-(grid streaming, scratch persistence across grid steps, pl.when).
+Samples are read time-major (``[T, S]``, one XLA transpose per block) so
+every per-sample load of a program is one contiguous row segment.
+
+Semantics are bit-identical to the plain chain, including ``n_valid``
+masking, ``block_base`` positions, the ``lost2_lo/hi`` gate and the
+chain's slot accounting (at most ``MINI_SLOTS`` frames per
+``HDLC_CHUNK``-slot chunk, the rest counted as dropped).  The FIR uses
+explicitly rounded PTX arithmetic so its result does not depend on the
+compiler's FMA contraction or denormal flushing (see ``_FIR_ASM``).
 """
 
 from __future__ import annotations
 
 import functools
+import struct
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from gnuais_tpu import constants as C
-from gnuais_tpu.ops.demod import DpllState
-
-LANES = 128
-SUBLANES = 8
-TILE_STREAMS = LANES * SUBLANES     # 1024 streams per kernel call
-
-# Python-float copies of the float32 taps: used as scalar constants in
-# the kernel so Mosaic broadcasts them (values are already f32-rounded).
-_TAPS_F32 = [float(v) for v in np.asarray(C.FIR_TAPS, dtype=np.float32)]
-
-# Main-lobe support for the op-diet FIR (fir_mode="lobe"): the Gaussian
-# taps fall off by ~1e5 per index; outside [LOBE_LO, LOBE_HI] they are
-# < 1.3e-13, so with int16 inputs (|x| <= 32768) their total possible
-# contribution (< 1e-8) is orders of magnitude below the smallest
-# nonzero magnitude an f32 cancellation of main-lobe terms can produce
-# (~ulp(1e3) ~ 6e-5) — dropping them cannot move the slicer's sign for
-# any input that excites a main-lobe tap.  Two residual deviations from
-# the exact chain make this a packet-parity-gated mode (like "mxu"),
-# NOT a bit-exact one: (a) windows nonzero ONLY at skipped-tap
-# positions (first samples of an onset after digital silence) see
-# exact 0 instead of a +-1e-43 wiggle; (b) the symmetric PAIRING below
-# reorders the f32 accumulation, so sums within rounding noise of zero
-# can round to the other sign.
-LOBE_LO, LOBE_HI = 10, 25
-assert all(abs(t) < 1.3e-13 for i, t in enumerate(_TAPS_F32)
-           if not (LOBE_LO <= i <= LOBE_HI))
-# taps are symmetric (t[i] == t[35-i], verified against receiver.c):
-# pair the mirrored samples first, halving the multiplies
-assert all(_TAPS_F32[i] == _TAPS_F32[C.FIR_LEN - 1 - i]
-           for i in range(C.FIR_LEN))
-
-
-def _dpll_kernel(nvalid_ref, x_ref, pll_in, prev_in, last_in,
-                 bits_ref, pll_out, prev_out, last_out, state,
-                 unroll: int = 32, chunks_per_tile: int | None = None):
-    """One grid step: TC time-tiles of [8, 128] streams.
-
-    state: VMEM scratch [3, 8, 128] int32 persisting across grid steps
-    (TPU grid iterations run sequentially on the core).  The 1-D grid
-    ranges over stream tiles x time chunks (time fastest):
-    ``chunk = program_id % chunks_per_tile`` is the position within the
-    current stream tile; state resets from the tile's carry at chunk 0
-    and flushes at the tile's last chunk.
-    """
-    tc = x_ref.shape[0]
-    idx = pl.program_id(0)
-    cpt = chunks_per_tile or pl.num_programs(0)
-    chunk = idx % cpt
-
-    @pl.when(chunk == 0)
-    def _():
-        state[0] = pll_in[:]
-        state[1] = prev_in[:]
-        state[2] = last_in[:]
-
-    n_valid = nvalid_ref[0]
-
-    # Process UNROLL time steps per loop iteration: one [UNROLL, 8, 128]
-    # VMEM load and one store amortize the dynamic-index overhead that
-    # dominates a step-at-a-time loop; the recurrence itself runs on
-    # register tiles between them.
-
-    def body(u, _):
-        base = u * unroll
-        x8 = x_ref[pl.ds(base, unroll)]            # [UNROLL, 8, 128]
-        pll = state[0]
-        prev = state[1]
-        lastbit = state[2]
-        outs = []
-        for k in range(unroll):
-            curr = (x8[k] > 0.0).astype(jnp.int32)
-            trans = curr != prev
-            nudge = jnp.where(pll < C.PLL_CENTER, C.PLL_NUDGE, -C.PLL_NUDGE)
-            pll_adv = pll + jnp.where(trans, nudge, 0) + C.PLL_INC
-            emit = pll_adv > 0xFFFF
-            bit = 1 - (curr ^ lastbit)
-            valid = (chunk * tc + base + k) < n_valid
-            outs.append(jnp.where(emit & valid, 2 + bit, 0))
-            # pll_adv in [0, 2^17); & 0xFFFF is identity when not emit
-            pll_next = pll_adv & 0xFFFF
-            last_next = jnp.where(emit, curr, lastbit)
-            pll = jnp.where(valid, pll_next, pll)
-            prev = jnp.where(valid, curr, prev)
-            lastbit = jnp.where(valid, last_next, lastbit)
-        bits_ref[pl.ds(base, unroll)] = jnp.stack(outs)
-        state[0] = pll
-        state[1] = prev
-        state[2] = lastbit
-        return 0
-
-    jax.lax.fori_loop(0, tc // unroll, body, 0)
-
-    @pl.when(chunk == cpt - 1)
-    def _():
-        pll_out[:] = state[0]
-        prev_out[:] = state[1]
-        last_out[:] = state[2]
-
-
-def dpll_pallas_tiles(filtered_tiles: jax.Array, n_valid: jax.Array,
-                      pll: jax.Array, prev: jax.Array, lastbit: jax.Array,
-                      time_chunk: int = 512, interpret: bool = False,
-                      unroll: int = 32, n_tiles: int = 1):
-    """Run the DPLL kernel on pre-tiled input.
-
-    filtered_tiles: float32 [NT*T, 8, 128] (stream-tile-major, time
-    contiguous within each tile) with T a multiple of time_chunk.
-    State tiles: int32 [NT*8, 128].  Returns (bits [NT*T, 8, 128] int32
-    coded 2*valid+bit, new state tiles)."""
-    t = filtered_tiles.shape[0] // n_tiles
-    assert t % time_chunk == 0, (t, time_chunk)
-    assert time_chunk % unroll == 0, (time_chunk, unroll)
-    cpt = t // time_chunk
-    grid = (n_tiles * cpt,)
-
-    kernel = pl.pallas_call(
-        functools.partial(_dpll_kernel, unroll=unroll,
-                          chunks_per_tile=cpt),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((time_chunk, SUBLANES, LANES),
-                             lambda i, nv: (i, 0, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-            ],
-            out_specs=[
-                pl.BlockSpec((time_chunk, SUBLANES, LANES),
-                             lambda i, nv: (i, 0, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-            ],
-            scratch_shapes=[pltpu.VMEM((3, SUBLANES, LANES), jnp.int32)],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((n_tiles * t, SUBLANES, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((n_tiles * SUBLANES, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((n_tiles * SUBLANES, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((n_tiles * SUBLANES, LANES), jnp.int32),
-        ],
-        interpret=interpret,
-    )
-    nv = jnp.asarray([n_valid], dtype=jnp.int32)
-    bits, pll2, prev2, last2 = kernel(nv, filtered_tiles, pll, prev, lastbit)
-    return bits, pll2, prev2, last2
-
-
-def n_stream_tiles(s: int, sublanes: int = SUBLANES) -> int:
-    return -(-s // (sublanes * LANES))
-
-
-def _to_tiles(x: jax.Array,
-              sublanes: int = SUBLANES) -> Tuple[jax.Array, int]:
-    """[S, T] -> [NT*T, sublanes, 128] tiles (S padded to a tile
-    multiple), dtype preserved: stream-tile-major, time contiguous
-    within each tile.
-
-    Keeping int16 input at int16 halves the HBM traffic of this
-    transpose (the kernels convert to float32 per-register-tile).
-    sublanes > 8 runs MULTIPLE independent stream groups per VPU op:
-    the sequential DPLL/HDLC recurrence is latency-bound, so wider
-    tiles pipeline more independent per-lane chains through the same
-    op latency."""
-    s, t = x.shape
-    ts = sublanes * LANES
-    nt = n_stream_tiles(s, sublanes)
-    pad = nt * ts - s
-    xp = jnp.pad(x, ((0, pad), (0, 0)))
-    return (xp.reshape(nt, ts, t).transpose(0, 2, 1)
-            .reshape(nt * t, sublanes, LANES), pad)
-
-
-def tile_superblock(samples: jax.Array, n_blocks: int,
-                    sublanes: int = SUBLANES) -> jax.Array:
-    """[S, K*T] -> [K, nt*T, sb, LANES] per-block stream tiles in ONE
-    transpose pass.
-
-    The fused kernel's native input layout is stream-tile-major (time
-    on sublane-axis rows, streams on lanes).  Feeding decode_superblock
-    row-major [S, K*T] costs three HBM relayout passes per superblock
-    (input layout copy + per-block slice + tiles copy — measured ~37%
-    of the whole decode step at the flagship config, more than the
-    kernel itself).  Callers that can produce or upload this layout
-    directly (the host owns the layout of what it device_puts) skip all
-    of it via decode_superblock(..., pretiled=True)."""
-    s, total = samples.shape
-    assert total % n_blocks == 0, (total, n_blocks)
-    t = total // n_blocks
-    ts = sublanes * LANES
-    nt = n_stream_tiles(s, sublanes)
-    xp = jnp.pad(samples, ((0, nt * ts - s), (0, 0)))
-    return (xp.reshape(nt, ts, n_blocks, t).transpose(2, 0, 3, 1)
-            .reshape(n_blocks, nt * t, sublanes, LANES))
-
-
-def _carry_history(samples: jax.Array, history: jax.Array,
-                   n_valid: jax.Array) -> jax.Array:
-    """Last FIR_LEN valid raw samples as float32 [S, 36] — without
-    materializing concat(history, samples) (that intermediate is as big
-    as the block itself).  full = [history | samples]; the wanted window
-    full[nv : nv+36] lies either inside samples (nv >= 36) or inside
-    the first 72 columns (nv < 36), so a clamped 36-column slice of
-    samples plus one 72-wide concat covers both cases."""
-    nv = jnp.asarray(n_valid, dtype=jnp.int32)
-    # Clamp the tail start: dynamic_slice's allow_negative_indices would
-    # wrap nv - 36 < 0 to the END of the block (pad region), corrupting
-    # the carried history for short final blocks (n_valid < 36).
-    tail = jax.lax.dynamic_slice_in_dim(
-        samples, jnp.maximum(nv - C.FIR_LEN, 0), C.FIR_LEN,
-        axis=1).astype(jnp.float32)
-    small = jnp.concatenate([history, tail], axis=1)    # [S, 72]
-    return jax.lax.dynamic_slice_in_dim(
-        small, jnp.minimum(nv, C.FIR_LEN), C.FIR_LEN, axis=1)
-
-
-def _state_to_tiles(v: jax.Array, sublanes: int = SUBLANES) -> jax.Array:
-    """[S] -> [NT*sublanes, 128] (stream-tile-major)."""
-    s = v.shape[0]
-    nt = n_stream_tiles(s, sublanes)
-    vp = jnp.pad(v, (0, nt * sublanes * LANES - s))
-    return vp.reshape(nt * sublanes, LANES)
-
-
-def _tiles_to_state(tile: jax.Array, s: int) -> jax.Array:
-    return tile.reshape(-1)[:s]
-
-
-def _frontend_kernel(nvalid_ref, x_ref, pll_in, prev_in, last_in, hist_in,
-                     coded_ref, pll_out, prev_out, last_out,
-                     state, hist, unroll: int = 32,
-                     chunks_per_tile: int | None = None):
-    """Fused FIR + DPLL + 4-sample group reduce, one grid step.
-
-    x_ref: RAW sample tiles [TC, 8, 128] float32 (int16 values).  The
-    36-tap FIR runs in-kernel with the reference's exact accumulation
-    order (filter.c:43-52: sequential f32 multiply-adds, tap 0 first),
-    so the filtered array never touches HBM.  DPLL semantics match
-    ``_dpll_kernel``; emissions are reduced into aligned 4-sample groups
-    (provably <= 1 emission/group, see demod.group_reduce_bits) and
-    written as ``valid<<3 | bit<<2 | offset`` int32 codes — 1/4 the
-    output traffic of the per-sample coded stream.
-
-    hist: VMEM scratch [36, 8, 128] float32 — the last 36 raw samples
-    before the current position (oldest first), persisting across grid
-    steps.  out[n] covers x[n-36 .. n-1] (one-sample delay,
-    filter.c:115-122).
-    """
-    tc = x_ref.shape[0]
-    idx = pl.program_id(0)
-    cpt = chunks_per_tile or pl.num_programs(0)
-    chunk = idx % cpt
-
-    @pl.when(chunk == 0)
-    def _():
-        state[0] = pll_in[:]
-        state[1] = prev_in[:]
-        state[2] = last_in[:]
-        hist[:] = hist_in[:]
-
-    n_valid = nvalid_ref[0]
-
-    def body(u, _):
-        base = u * unroll
-        # [UNROLL, 8, 128] raw (int16 or f32 input; f32 convert is exact)
-        x8 = x_ref[pl.ds(base, unroll)].astype(jnp.float32)
-        # sliding window: 36 history tiles + the unroll chunk
-        win = [hist[i] for i in range(C.FIR_LEN)]
-        win += [x8[k] for k in range(unroll)]
-        pll = state[0]
-        prev = state[1]
-        lastbit = state[2]
-        groups = []
-        acc = None
-        for k in range(unroll):
-            f = win[k] * _TAPS_F32[0]
-            for i in range(1, C.FIR_LEN):
-                f = f + win[k + i] * _TAPS_F32[i]
-            curr = (f > 0.0).astype(jnp.int32)
-            trans = curr != prev
-            nudge = jnp.where(pll < C.PLL_CENTER, C.PLL_NUDGE, -C.PLL_NUDGE)
-            pll_adv = pll + jnp.where(trans, nudge, 0) + C.PLL_INC
-            emit = pll_adv > 0xFFFF
-            bit = 1 - (curr ^ lastbit)
-            valid = (chunk * tc + base + k) < n_valid
-            code = jnp.where(emit & valid, 8 | (bit << 2) | (k & 3), 0)
-            acc = code if acc is None else acc | code
-            if (k & 3) == 3:
-                groups.append(acc)
-                acc = None
-            # pll_adv in [0, 2^17); & 0xFFFF is identity when not emit
-            pll_next = pll_adv & 0xFFFF
-            last_next = jnp.where(emit, curr, lastbit)
-            pll = jnp.where(valid, pll_next, pll)
-            prev = jnp.where(valid, curr, prev)
-            lastbit = jnp.where(valid, last_next, lastbit)
-        coded_ref[pl.ds(base // 4, unroll // 4)] = jnp.stack(groups)
-        state[0] = pll
-        state[1] = prev
-        state[2] = lastbit
-        # roll the history: last 36 samples of the extended window
-        for i in range(C.FIR_LEN):
-            hist[i] = win[unroll + i]
-        return 0
-
-    jax.lax.fori_loop(0, tc // unroll, body, 0)
-
-    @pl.when(chunk == cpt - 1)
-    def _():
-        pll_out[:] = state[0]
-        prev_out[:] = state[1]
-        last_out[:] = state[2]
-
-
-def frontend_fused(samples: jax.Array, n_valid: jax.Array,
-                   history: jax.Array, state: DpllState,
-                   block_base: jax.Array | int = 0,
-                   time_chunk: int = 512, interpret: bool | None = None,
-                   unroll: int = 32
-                   ) -> Tuple[jax.Array, jax.Array, jax.Array,
-                              jax.Array, DpllState]:
-    """Fused replacement for fir_exact + dpll + group_reduce_bits.
-
-    samples: int16/float32 [S, T] RAW samples (any S — streams beyond
-    1024 ride extra grid tiles), T a multiple of time_chunk; history:
-    float32 [S, 36]; state: DpllState.  Returns (gbits [S, T/4] int32,
-    gvalid [S, T/4] bool, gpos [S, T/4] int32 absolute sample indices,
-    new_history, new state) — bit-identical to the unfused exact chain.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    s, t = samples.shape
-    assert t % time_chunk == 0 and time_chunk % unroll == 0 \
-        and unroll % 4 == 0, (t, time_chunk, unroll)
-    nt = n_stream_tiles(s)
-    cpt = t // time_chunk
-    tiles, _pad = _to_tiles(samples)
-    hist_t = jnp.pad(history, ((0, nt * TILE_STREAMS - s), (0, 0))) \
-        .reshape(nt, TILE_STREAMS, C.FIR_LEN).transpose(0, 2, 1) \
-        .reshape(nt * C.FIR_LEN, SUBLANES, LANES)
-
-    kernel = pl.pallas_call(
-        functools.partial(_frontend_kernel, unroll=unroll,
-                          chunks_per_tile=cpt),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nt * cpt,),
-            in_specs=[
-                pl.BlockSpec((time_chunk, SUBLANES, LANES),
-                             lambda i, nv: (i, 0, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((C.FIR_LEN, SUBLANES, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-            ],
-            out_specs=[
-                pl.BlockSpec((time_chunk // 4, SUBLANES, LANES),
-                             lambda i, nv: (i, 0, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-                pl.BlockSpec((SUBLANES, LANES), lambda i, nv: (i // cpt, 0)),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((3, SUBLANES, LANES), jnp.int32),
-                pltpu.VMEM((C.FIR_LEN, SUBLANES, LANES), jnp.float32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((nt * t // 4, SUBLANES, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * SUBLANES, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * SUBLANES, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * SUBLANES, LANES), jnp.int32),
-        ],
-        interpret=interpret,
-    )
-    nv = jnp.asarray([n_valid], dtype=jnp.int32)
-    coded_t, pll2, prev2, last2 = kernel(
-        nv, tiles,
-        _state_to_tiles(state.pll),
-        _state_to_tiles(state.prev),
-        _state_to_tiles(state.lastbit),
-        hist_t)
-
-    g = t // 4
-    coded = coded_t.reshape(nt, g, TILE_STREAMS).transpose(0, 2, 1) \
-        .reshape(nt * TILE_STREAMS, g)[:s]                  # [S, T/4]
-    gvalid = coded >= 8
-    gbits = (coded >> 2) & 1
-    gpos = jnp.where(
-        gvalid,
-        (block_base + 4 * jnp.arange(g, dtype=jnp.int32))[None, :]
-        + (coded & 3), 0).astype(jnp.int32)
-
-    # carried history: last 36 valid raw samples (computed in XLA — the
-    # kernel's in-flight history sees pad zeros past n_valid)
-    new_history = _carry_history(samples, history, n_valid)
-
-    new_state = DpllState(
-        pll=_tiles_to_state(pll2, s),
-        prev=_tiles_to_state(prev2, s),
-        lastbit=_tiles_to_state(last2, s),
-    )
-    return gbits, gvalid, gpos, new_history, new_state
-
-
-def dpll_fused(filtered: jax.Array, n_valid: jax.Array, state: DpllState,
-               time_chunk: int = 512, interpret: bool | None = None,
-               unroll: int = 32) -> Tuple[jax.Array, jax.Array, DpllState]:
-    """Drop-in fast replacement for ops.demod.dpll_scan.
-
-    filtered: [S, T] float32 (any S) with T a multiple of time_chunk.
-    Returns (bit_valid [S, T] bool, bits [S, T] int32, new state).
-    """
-    if interpret is None:
-        # Mosaic kernels need a TPU; anywhere else (CPU tests, virtual
-        # meshes) the interpreter provides identical semantics.
-        interpret = jax.default_backend() != "tpu"
-    s, t = filtered.shape
-    nt = n_stream_tiles(s)
-    tiles, _pad = _to_tiles(filtered)
-    bits_t, pll2, prev2, last2 = dpll_pallas_tiles(
-        tiles, n_valid,
-        _state_to_tiles(state.pll),
-        _state_to_tiles(state.prev),
-        _state_to_tiles(state.lastbit),
-        time_chunk=time_chunk, interpret=interpret, unroll=unroll,
-        n_tiles=nt)
-    coded = bits_t.reshape(nt, t, TILE_STREAMS).transpose(0, 2, 1) \
-        .reshape(nt * TILE_STREAMS, t)[:s]              # [S, T]
-    bit_valid = coded >= 2
-    bits = coded & 1
-    new_state = DpllState(
-        pll=_tiles_to_state(pll2, s),
-        prev=_tiles_to_state(prev2, s),
-        lastbit=_tiles_to_state(last2, s),
-    )
-    return bit_valid, bits, new_state
-
-
-# ---------------------------------------------------------------------------
-# Fully fused pipeline kernel: FIR + DPLL + slotting + HDLC deframe.
-# Raw samples in, frame snapshots out — no intermediate array (filtered
-# samples, per-sample bits, bit slots) ever touches HBM.
-# ---------------------------------------------------------------------------
-
 from gnuais_tpu.ops.demod import (HDLC_CHUNK, MINI_SLOTS, REG_WORDS,
-                                  HdlcState)
+                                  DpllState, FrameBatch, HdlcState)
 
-HDLC_VARS = 8   # state, last, antallpreamble, nstartsign, antallenner,
-                # bitstuff, bufferpos, data_start
+_TAPS_F32 = [float(v) for v in np.asarray(C.FIR_TAPS, dtype=np.float32)]
+_N_STATE = 3 + 8      # DPLL (pll, prev, lastbit) + HDLC scalar state
+# Bit slots of samples loaded ahead of use: one warp per scheduler has
+# no other work to hide a global load behind, so the time loop carries
+# the next slots' samples in registers.
+_PREFETCH = 1
+# Streams per program: one warp, one stream per thread.  A stream is a
+# sequential recurrence, so a program's speed is set by its one warp's
+# latency and the block size only spreads the same warps over the SMs
+# (32, 64 and 128 measured alike at 4,096 streams; see PERF.md).
+STREAM_BLOCK = 32
 
 
-def _hdlc_slot_tiles(hv, b, valid, spos):
-    """One HDLC bit-slot STATE update on stream tiles (register shift
-    excluded — see _single_shift).
+def kernel_platform() -> bool:
+    """Whether the compiled kernel can run here: the one place that
+    decides the default decode path (the GPU runs the kernel, every
+    other platform the plain chain)."""
+    return jax.default_backend() == "gpu"
 
-    Mirrors the per-slot update in ops.demod.hdlc_scan (itself an exact
-    re-derivation of protodec.c:993-1121) with streams on VPU lanes.
 
-    hv: tuple of HDLC_VARS int32 tiles; b: int32 bit tile; valid: bool
-    tile (slots without an emitted bit freeze the state); spos: int32
-    tile of absolute sample indices.
+def _check_platform(interpret: bool) -> None:
+    if not interpret and not kernel_platform():
+        raise RuntimeError(
+            "the fused decode kernel is compiled for the GPU only; "
+            f"default backend is {jax.default_backend()!r} (tests pass "
+            "interpret=True)")
 
-    Returns (hv', append, emit, flen, bad) — append marks lanes whose
-    shift register consumes this slot's bit; emit marks completed
-    frames of positive length (their register snapshot excludes this
-    slot — stop slots never append); flen is the pre-reset payload bit
-    count; bad marks wrong-size stop flags (lostframes2).
 
-    Op diet: the per-state transition values are merged through ONE
-    shared ``hard`` reset predicate (every path back to the noise hunt
-    zeroes all counters — protodec.c resets the whole struct) instead
-    of five-way where-chains per variable; the state one-hots are
-    disjoint, so each variable needs only the picks its soft values
-    actually differ on.  Semantics are pinned bit-exactly by the fused
-    parity tests (tests/test_fused_pipeline.py) against ops.demod's
-    literal transcription of protodec.c:993-1121.
+# ---------------------------------------------------------------------------
+# FIR
+# ---------------------------------------------------------------------------
+
+def _f32_hex(v: float) -> str:
+    return "0f%08X" % struct.unpack("<I", struct.pack("<f", v))[0]
+
+
+# One tap of the reference's multiply-accumulate (filter.c:43-53):
+# acc + round(x * tap), each step rounded to float32 with no FMA
+# contraction and no denormal flushing (the first taps are subnormal,
+# so flushing would change the slicer sign at signal onsets).
+_FIR_ASM = "{ .reg .f32 p; mul.rn.f32 p, $2, %s; add.rn.f32 $0, $1, p; }"
+
+
+def _fir(win, k: int, interpret: bool):
+    """Filtered sample from window positions ``win[k : k + FIR_LEN]``
+    (oldest first), accumulated tap 0 first like ops.fir.fir_exact."""
+    if interpret:
+        acc = win[k] * _TAPS_F32[0]
+        for i in range(1, C.FIR_LEN):
+            acc = acc + win[k + i] * _TAPS_F32[i]
+        return acc
+    (acc,) = plgpu.elementwise_inline_asm(
+        "mul.rn.f32 $0, $1, %s;" % _f32_hex(_TAPS_F32[0]),
+        args=[win[k]], constraints="=f,f", pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(win[k].shape,
+                                                  jnp.float32)])
+    for i in range(1, C.FIR_LEN):
+        (acc,) = plgpu.elementwise_inline_asm(
+            _FIR_ASM % _f32_hex(_TAPS_F32[i]),
+            args=[acc, win[k + i]], constraints="=f,f,f", pack=1,
+            result_shape_dtypes=[jax.ShapeDtypeStruct(acc.shape,
+                                                      jnp.float32)])
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# HDLC bit slot
+# ---------------------------------------------------------------------------
+
+def _hdlc_slot(hv, b, valid, spos):
+    """One HDLC bit-slot state update (shift register excluded), the
+    per-slot rule of ops.demod.hdlc_scan (protodec.c:993-1121) with the
+    per-state transitions merged through one shared ``hard`` reset.
+
+    hv: the 8 HDLC state vectors; b: bit; valid: slot holds a bit (the
+    state freezes otherwise); spos: absolute sample index of the bit.
+    Returns (hv', append, emit, flen, bad): append marks streams whose
+    register takes this bit, emit a completed frame of positive length
+    (its register snapshot excludes this slot), flen the payload bit
+    count, bad a wrong-size stop flag (lostframes2).
     """
     st_state, st_last, st_ap, st_ns, st_ae, st_bs, st_bp, st_ds = hv
 
@@ -518,9 +134,9 @@ def _hdlc_slot_tiles(hv, b, valid, spos):
 
     b1 = b == 1
     b0 = jnp.logical_not(b1)
-    alt = b != st_last                    # shared by SKURR and PREAMBLE
+    alt = b != st_last
 
-    # ---- ST_DATA -----------------------------------------------------
+    # ST_DATA
     d_stuffed = st_bs == 1
     d_to_stop = d_stuffed & b1
     d_app = jnp.logical_not(d_stuffed)
@@ -530,11 +146,11 @@ def _hdlc_slot_tiles(hv, b, valid, spos):
     bp_app = st_bp + 1
     d_reset = d_app & (bp_app >= C.MAX_FRAME_DATA_BITS)
 
-    # ---- ST_SKURR ------------------------------------------------------
+    # ST_SKURR
     ap_s = jnp.where(alt, st_ap + 1, 0)
     s_go = (ap_s > 14) & b0
 
-    # ---- ST_PREAMBLE ---------------------------------------------------
+    # ST_PREAMBLE
     p_ns0 = st_ns == 0
     p_ns5 = st_ns == 5
     p_alt = alt & p_ns0
@@ -542,24 +158,21 @@ def _hdlc_slot_tiles(hv, b, valid, spos):
     p_to_start = p_not_alt & b1 & p_ns5
     p_reset = p_not_alt & b0 & jnp.logical_not(p_ns0)
 
-    # ---- ST_STARTSIGN ----------------------------------------------------
+    # ST_STARTSIGN
     t_ge7 = st_ns >= 7
     t_to_data = t_ge7 & b0
     t_reset = (t_ge7 & b1) | (jnp.logical_not(t_ge7) & b0)
 
-    # ---- ST_STOPSIGN -----------------------------------------------------
+    # ST_STOPSIGN
     flen = st_bp - C.FRAME_TAIL_BITS
     good = b0 & (flen > 0)
 
-    # ---- merge -----------------------------------------------------------
-    # hard: every transition that resets the machine to the noise hunt
-    # with all counters zeroed (the one exception: t_reset sets ns=1,
-    # handled below by is_start's one-hot).
+    # every path back to the noise hunt zeroes all counters (the
+    # reference resets the whole struct), except t_reset's ns = 1
     hard = (is_stop | (is_data & d_reset) | (is_pre & p_reset)
             | (is_start & t_reset))
     sd = is_start & t_to_data             # START -> DATA handoff
     da = is_data & d_app                  # DATA slot that appends
-    zero = jnp.zeros_like(st_state)
 
     soft_state = jnp.where(
         is_data, jnp.where(d_to_stop, C.ST_STOPSIGN, C.ST_DATA),
@@ -587,38 +200,30 @@ def _hdlc_slot_tiles(hv, b, valid, spos):
                         jnp.where(is_start,
                                   jnp.where(t_to_data, 1, st_ns + 1),
                                   st_ns))
-    # t_reset (the only hard case with is_start) sets ns = 1, not 0
     n_ns = jnp.where(hard, is_start.astype(jnp.int32), soft_ns)
 
-    n_ae = jnp.where(hard | sd, 0,
-                     jnp.where(da, ae_app, st_ae))
+    n_ae = jnp.where(hard | sd, 0, jnp.where(da, ae_app, st_ae))
     n_bs = jnp.where(hard, 0,
                      jnp.where(is_data,
                                (da & d_set_stuff).astype(jnp.int32),
                                st_bs))
-    n_bp = jnp.where(hard | sd, 0,
-                     jnp.where(da, bp_app, st_bp))
+    n_bp = jnp.where(hard | sd, 0, jnp.where(da, bp_app, st_bp))
     n_ds = jnp.where(sd, spos, st_ds)
 
     def keep(new, old):
         return jnp.where(valid, new, old)
-
-    append = valid & da
 
     hv2 = (keep(n_state, st_state), keep(b, st_last), keep(n_ap, st_ap),
            keep(n_ns, st_ns), keep(n_ae, st_ae), keep(n_bs, st_bs),
            keep(n_bp, st_bp), keep(n_ds, st_ds))
     emit = is_stop & good & valid
     bad = is_stop & jnp.logical_not(good) & valid
-    return hv2, append, emit, flen, bad
+    return hv2, valid & da, emit, flen, bad
 
 
-def _single_shift(srg, b, append):
-    """Shift the packed register left by one, inserting ``b``, on
-    append lanes only.  (A paired two-slot variant with per-lane
-    variable shift amounts measured ~10% slower on v5e — vector shifts
-    with vector amounts lower poorly in Mosaic — so the straight
-    per-slot form stays.)"""
+def _shift_in(srg, b, append):
+    """Shift the packed register left by one, inserting ``b`` at the LSB
+    of the last word, on ``append`` streams only."""
     bu = b.astype(jnp.uint32)
     out = []
     for w in range(REG_WORDS):
@@ -627,817 +232,259 @@ def _single_shift(srg, b, append):
     return out
 
 
-def _fir_band_matrix(unroll: int) -> np.ndarray:
-    """Static [unroll, FIR_LEN + unroll] banded taps matrix A with
-    A[k, k+i] = taps[i], so that f[k] = (A @ win)[k] for a window
-    win[0..FIR_LEN+unroll) of FIR_LEN history + unroll new samples."""
-    a = np.zeros((unroll, C.FIR_LEN + unroll), dtype=np.float32)
-    taps = np.asarray(C.FIR_TAPS, dtype=np.float32)
-    for k in range(unroll):
-        a[k, k:k + C.FIR_LEN] = taps
-    return a
+# ---------------------------------------------------------------------------
+# The decode kernel
+# ---------------------------------------------------------------------------
 
+def _decode_kernel(scal_ref, x_ref, hist_ref, state_ref, reg_ref, gate_ref,
+                   _w0, _l0, _s0, _e0,
+                   words_ref, len_ref, start_ref, end_ref,
+                   state_out, reg_out, ctr_out, *,
+                   frame_slots: int, interpret: bool):
+    """One program: ``bs`` streams through every sample of the block.
 
-def _pipeline_kernel(scal_ref, x_ref, pll_in, prev_in, last_in, hist_in,
-                     hst_in, sreg_in, *refs,
-                     unroll: int = 32, guarded: bool = True,
-                     chunks_per_tile: int | None = None,
-                     with_fir: bool = True, fir_mode: str = "vpu",
-                     amat_ref=None, assume_full: bool = False,
-                     strip: str = "", landing: str = "slot",
-                     compact_slots: int | None = None):
-    """One grid step of the fully fused decode pipeline.
-
-    scal_ref: [4] int32 = (n_valid, block_base, lost2_lo, lost2_hi).
-    Per grid step, TC raw sample tiles stream in; frame snapshots land
-    in per-HDLC-chunk mini buffers (<= MINI_SLOTS completions per
-    64-slot chunk — see the spacing argument at demod.HDLC_CHUNK)
-    flushed to mwords/mlen/mstart/mend/mcnt.  lost2/over accumulate
-    across the whole call and are written once at the end; lost2 counts
-    only wrong-size stops whose position lies in [lost2_lo, lost2_hi)
-    (overlap-decode callers gate on their own region — see
-    demod.hdlc_scan).
-
-    landing="slot" writes each completed frame into the mini buffers at
-    its own slot: MINI_SLOTS x (REG_WORDS + 3) VMEM read-modify-writes
-    EVERY 4 samples.  landing="body" exploits the same spacing argument
-    one level up: a frame's stop flag and the next frame's first
-    register append are >= ~27 slots apart, so an unroll body of
-    <= 24 slots sees AT MOST ONE emission and the shift register,
-    data_start and HDLC state are UNCHANGED from the emission slot to
-    the body's end — the per-slot work shrinks to five register
-    latches (emit/bad accumulate, flen/spos picks) and the mini-buffer
-    merge runs once per body (8-16x fewer VMEM RMWs; bit-identical,
-    pinned by the fused parity tests in both landings).
-
-    compact_slots=F replaces the per-chunk mini-buffer HBM stream with
-    IN-KERNEL compaction: each tile keeps an [F, REG_WORDS+3] candidate
-    buffer resident in VMEM (a revisited output block) and, at every
-    HDLC-chunk flush, merges the chunk's mini slots into it at the
-    lane's RUNNING frame count — arrival order, exactly
-    demod.compact_candidates' destination rule.  The ~99%-empty
-    candidate stream (the r5 profile's dominant glue: ~1.4 GB written,
-    transposed and gathered per flagship dispatch) never exists; the
-    XLA side reads back the dense [F] slots and counters only.
-    Requires landing="body".
+    scal_ref: [2] int32 (n_valid, block_base); x_ref: [T4, bs] raw
+    samples, time-major; hist_ref: [FIR_LEN, bs] float32 raw-sample
+    history (oldest first); state_ref: [11, bs] int32 (pll, prev,
+    lastbit, 8 HDLC vars); reg_ref: [REG_WORDS, bs] uint32; gate_ref:
+    [2, bs] int32 per-stream lost2 bounds [lo, hi).  Frame outputs
+    (aliased to zeroed inputs _w0.._e0): words [bs, F, REG_WORDS],
+    length/start/end [bs, F].  ctr_out: [3, bs] (raw frame count,
+    lost2, chunk overflow).
     """
-    if compact_slots is None:
-        (mwords_ref, mlen_ref, mstart_ref, mend_ref, mcnt_ref,
-         pll_out, prev_out, last_out, hst_out, sreg_out,
-         lost2_out, over_out,
-         state, hist, hst, sreg, mwords, mlen, mstart, mend,
-         mctr) = refs
-    else:
-        assert landing == "body" and not strip
-        (cw_ref, cf_ref, cnt_ref,
-         pll_out, prev_out, last_out, hst_out, sreg_out,
-         lost2_out, over_out,
-         state, hist, hst, sreg, mwords, mlen, mstart, mend,
-         mctr) = refs
-    tc = x_ref.shape[0]
-    idx = pl.program_id(0)
-    cpt = chunks_per_tile or pl.num_programs(0)
-    chunk = idx % cpt
-    slots_per_body = unroll // 4
-    bodies_per_hchunk = HDLC_CHUNK // slots_per_body
-
-    @pl.when(chunk == 0)
-    def _():
-        state[0] = pll_in[:]
-        state[1] = prev_in[:]
-        state[2] = last_in[:]
-        if with_fir:
-            hist[:] = hist_in[:]
-        hst[:] = hst_in[:]
-        sreg[:] = sreg_in[:]
-        mctr[:] = jnp.zeros(mctr.shape, dtype=jnp.int32)
-        if compact_slots is not None:
-            # deterministic empty slots (init_frames zeros), once per
-            # tile — the count gates validity either way
-            cw_ref[:] = jnp.zeros(cw_ref.shape, dtype=jnp.uint32)
-            cf_ref[:] = jnp.zeros(cf_ref.shape, dtype=jnp.int32)
-
+    bs = x_ref.shape[1]
+    n_slots = x_ref.shape[0] // 4 - _PREFETCH
     n_valid = scal_ref[0]
     block_base = scal_ref[1]
-    l2_lo = scal_ref[2]
-    l2_hi = scal_ref[3]
+    l2_lo = gate_ref[0, :]
+    l2_hi = gate_ref[1, :]
+    rows = jnp.arange(bs, dtype=jnp.int32)
+    zero = jnp.zeros((bs,), jnp.int32)
 
-    def body(u, _):
-        base = u * unroll
-        # [UNROLL, 8, 128] raw; int16 tiles cast per register tile (the
-        # int16 HBM layout halves the input's memory traffic).  In
-        # with_fir=False mode x_ref holds PRE-FILTERED f32 tiles (the
-        # FIR ran as an MXU convolution outside the kernel) and the
-        # in-kernel FIR — two thirds of the kernel's op count — is gone.
-        x8 = x_ref[pl.ds(base, unroll)].astype(jnp.float32)
-        if "fir" in strip:
-            pass                      # perf bisection: slicer eats raw
-        elif with_fir and fir_mode == "mxu":
-            # whole-chunk FIR as ONE matmul on the MXU: the [unroll,
-            # FIR_LEN+unroll] banded taps matrix contracts the sliding
-            # window over all unroll positions at once, freeing the VPU
-            # (36 of ~58 ops/sample) for the integer recurrence.  NOT
-            # guaranteed bit-exact vs the sequential C accumulation
-            # (MXU f32 = bf16 multi-pass) — gate with packet parity.
-            stacked = jnp.concatenate([hist[:], x8], axis=0)
-            fmat = jnp.dot(
-                amat_ref[:],
-                stacked.reshape(C.FIR_LEN + unroll, -1),
-                preferred_element_type=jnp.float32)
-            fs = fmat.reshape((unroll,) + x8.shape[1:])
-        elif with_fir:
-            win = [hist[i] for i in range(C.FIR_LEN)]
-            win += [x8[k] for k in range(unroll)]
-        pll = state[0]
-        prev = state[1]
-        lastbit = state[2]
-        hv = tuple(hst[i] for i in range(HDLC_VARS))
-        srg = [sreg[i] for i in range(REG_WORDS)]
-        mcnt = mctr[0]
-        ml2 = mctr[1]
-        mover = mctr[2]
-        acc = None
-        # body-landing latches (see docstring): at most one emission /
-        # bad stop per body, so these five registers carry everything
-        # the end-of-body merge needs
-        b_emit = b_bad = b_flen = b_spos = b_badpos = None
-        for k in range(unroll):
-            if "fir" in strip:
-                f = x8[k]
-            elif with_fir and fir_mode == "mxu":
-                f = fs[k]
-            elif with_fir and fir_mode == "lobe":
-                # main-lobe symmetric-pair FIR: 8 muls + 15 adds
-                # instead of 36 muls + 35 adds (see LOBE_LO note)
-                f = None
-                for i in range(LOBE_LO, (LOBE_LO + LOBE_HI + 1) // 2):
-                    pair = win[k + i] + win[k + C.FIR_LEN - 1 - i]
-                    term = pair * _TAPS_F32[i]
-                    f = term if f is None else f + term
-            elif with_fir:
-                f = win[k] * _TAPS_F32[0]
-                for i in range(1, C.FIR_LEN):
-                    f = f + win[k + i] * _TAPS_F32[i]
-            else:
-                f = x8[k]
+    def load(g):
+        return tuple(x_ref[4 * g + k, :] for k in range(4))
+
+    def body(g, carry):
+        (ahead, win, pll, prev, lastbit, hv, srg,
+         cnt, ccnt, over, lost2) = carry
+        t0 = 4 * g
+        # the loads for slot g + _PREFETCH are issued now and consumed
+        # later, so their latency hides behind this slot's arithmetic
+        ahead = ahead + load(g + _PREFETCH)
+        win = list(win) + [v.astype(jnp.float32) for v in ahead[:4]]
+        gval = None
+        gbit = gpos = zero
+        for k in range(4):
+            f = _fir(win, k, interpret)
             curr = (f > 0.0).astype(jnp.int32)
-            # trans as integer arithmetic, not a compare: curr/prev are
-            # {0,1}, so trans*nudge == where(trans, nudge, 0) — and it
-            # avoids a cmpi-ne on i1 vectors Mosaic cannot lower when
-            # the assume_full path makes prev's bool provenance visible
             trans = curr ^ prev
-            nudge = jnp.where(pll < C.PLL_CENTER, C.PLL_NUDGE, -C.PLL_NUDGE)
+            nudge = jnp.where(pll < C.PLL_CENTER, C.PLL_NUDGE,
+                              -C.PLL_NUDGE)
             pll_adv = pll + trans * nudge + C.PLL_INC
-            emit_b = pll_adv > 0xFFFF
+            valid = (t0 + k) < n_valid
+            ev = (pll_adv > 0xFFFF) & valid
             bit = 1 - (curr ^ lastbit)
-            # pll_adv is always in [0, 2^17): when emit, & 0xFFFF is the
-            # wrap; otherwise pll_adv <= 0xFFFF so the mask is identity —
-            # the old per-sample select was redundant (exact algebra)
-            pll_next = pll_adv & 0xFFFF
-            last_next = jnp.where(emit_b, curr, lastbit)
-            if assume_full:
-                # caller statically guarantees n_valid == T: the three
-                # valid gates and the emit mask drop out of the hot loop
-                code = jnp.where(emit_b, 8 | (bit << 2) | (k & 3), 0)
-                pll = pll_next
-                prev = curr
-                lastbit = last_next
-            else:
-                valid = (chunk * tc + base + k) < n_valid
-                code = jnp.where(emit_b & valid,
-                                 8 | (bit << 2) | (k & 3), 0)
-                pll = jnp.where(valid, pll_next, pll)
-                prev = jnp.where(valid, curr, prev)
-                lastbit = jnp.where(valid, last_next, lastbit)
-            acc = code if acc is None else acc | code
-            if (k & 3) == 3 and "hdlc" in strip:
-                # perf-bisection mode: drop the whole slot section
-                acc = None
-                continue
-            if (k & 3) == 3:
-                gval = acc >= 8
-                gbit = (acc >> 2) & 1
-                spos = (block_base + chunk * tc + base + (k - 3)) \
-                    + (acc & 3)
-                hv, app, emit, flen, bad = _hdlc_slot_tiles(
-                    hv, gbit, gval, spos)
-                if landing == "body":
-                    b_emit = emit if b_emit is None else (b_emit | emit)
-                    b_bad = bad if b_bad is None else (b_bad | bad)
-                    b_flen = flen if b_flen is None \
-                        else jnp.where(emit, flen, b_flen)
-                    b_spos = spos if b_spos is None \
-                        else jnp.where(emit, spos, b_spos)
-                    b_badpos = spos if b_badpos is None \
-                        else jnp.where(bad, spos, b_badpos)
-                elif "book" not in strip:
-                    ml2 = ml2 + (bad & (spos >= l2_lo) & (spos < l2_hi)
-                                 ).astype(jnp.int32)
-                    mover = mover + (emit & (mcnt >= MINI_SLOTS)
-                                     ).astype(jnp.int32)
-                # per-slot register shift (a paired _double_shift with
-                # per-lane variable shift amounts measured ~10% SLOWER
-                # on v5e — vector shifts with vector amounts lower
-                # poorly; the straight form stays)
-                if "shift" not in strip:
-                    srg = _single_shift(srg, gbit, app)
+            pll = jnp.where(valid, pll_adv & 0xFFFF, pll)
+            prev = jnp.where(valid, curr, prev)
+            lastbit = jnp.where(ev, curr, lastbit)
+            # the 4-sample group holds at most one emission
+            # (demod.group_reduce_bits); sums keep its exact form
+            evi = ev.astype(jnp.int32)
+            gval = ev if gval is None else (gval | ev)
+            gbit = gbit + bit * evi
+            gpos = gpos + (block_base + t0 + k) * evi
 
-                def snapshot(emit=emit, flen=flen, srg=srg, hv=hv,
-                             mcnt=mcnt, spos=spos):
-                    for m in range(MINI_SLOTS):
-                        sel = emit & (mcnt == m)
-                        for w in range(REG_WORDS):
-                            mwords[m, w] = jnp.where(sel, srg[w],
-                                                     mwords[m, w])
-                        mlen[m] = jnp.where(sel, flen, mlen[m])
-                        mstart[m] = jnp.where(sel, hv[7], mstart[m])
-                        mend[m] = jnp.where(sel, spos, mend[m])
-
-                if "snap" in strip or landing == "body":
-                    pass
-                elif guarded:
-                    pl.when(jnp.any(emit))(snapshot)
-                else:
-                    snapshot()
-                if landing != "body":
-                    mcnt = mcnt + emit.astype(jnp.int32)
-                acc = None
-
-        if landing == "body" and b_emit is not None:
-            # end-of-body merge: srg and hv[7] are still the emission
-            # slot's values (no re-arm within <= 24 slots of a stop)
-            def merge(b_emit=b_emit, b_flen=b_flen, b_spos=b_spos,
-                      srg=srg, hv=hv, mcnt=mcnt):
-                for m in range(MINI_SLOTS):
-                    sel = b_emit & (mcnt == m)
-                    for w in range(REG_WORDS):
-                        mwords[m, w] = jnp.where(sel, srg[w],
-                                                 mwords[m, w])
-                    mlen[m] = jnp.where(sel, b_flen, mlen[m])
-                    mstart[m] = jnp.where(sel, hv[7], mstart[m])
-                    mend[m] = jnp.where(sel, b_spos, mend[m])
-
-            if "snap" in strip:
-                pass
-            elif guarded:
-                pl.when(jnp.any(b_emit))(merge)
-            else:
-                merge()
-            if "book" not in strip:
-                ml2 = ml2 + (b_bad & (b_badpos >= l2_lo)
-                             & (b_badpos < l2_hi)).astype(jnp.int32)
-                mover = mover + (b_emit & (mcnt >= MINI_SLOTS)
-                                 ).astype(jnp.int32)
-            mcnt = mcnt + b_emit.astype(jnp.int32)
-
-        state[0] = pll
-        state[1] = prev
-        state[2] = lastbit
-        for i in range(HDLC_VARS):
-            hst[i] = hv[i]
+        # frame bookkeeping of the plain chain: at most MINI_SLOTS
+        # frames per HDLC_CHUNK slots, later ones count as dropped
+        ccnt = jnp.where((g & (HDLC_CHUNK - 1)) == 0, 0, ccnt)
+        hv2, append, emit, flen, bad = _hdlc_slot(hv, gbit, gval, gpos)
+        cand = emit & (ccnt < MINI_SLOTS)
+        over = over + (emit & (ccnt >= MINI_SLOTS)).astype(jnp.int32)
+        ccnt = ccnt + emit.astype(jnp.int32)
+        put = cand & (cnt < frame_slots)
+        dst = jnp.minimum(cnt, frame_slots - 1)
         for w in range(REG_WORDS):
-            sreg[w] = srg[w]
-        if "fir" in strip:
-            pass
-        elif with_fir and fir_mode == "mxu":
-            hist[:] = stacked[unroll:]
-        elif with_fir:
-            for i in range(C.FIR_LEN):
-                hist[i] = win[unroll + i]
+            plgpu.store(words_ref.at[rows, dst, w], srg[w], mask=put)
+        plgpu.store(len_ref.at[rows, dst], flen, mask=put)
+        plgpu.store(start_ref.at[rows, dst], hv[7], mask=put)
+        plgpu.store(end_ref.at[rows, dst], gpos, mask=put)
+        cnt = cnt + cand.astype(jnp.int32)
+        lost2 = lost2 + (bad & (gpos >= l2_lo) & (gpos < l2_hi)
+                         ).astype(jnp.int32)
+        srg = _shift_in(srg, gbit, append)
+        return (ahead[4:], tuple(win[4:]), pll, prev, lastbit, hv2,
+                tuple(srg), cnt, ccnt, over, lost2)
 
-        flush = (u % bodies_per_hchunk) == bodies_per_hchunk - 1
-
-        if compact_slots is not None:
-            # merge this chunk's mini slots into the tile's resident
-            # candidate buffer at the lane's running count (arrival
-            # order == compact_candidates' destination rule).  Mini
-            # slot 0 merges unguarded (with thousands of lanes some
-            # lane completes a frame in most 256-sample chunks); slot
-            # 1 — two completions in one chunk needs back-to-back
-            # minimal frames — is guarded and almost never taken.
-            rcnt = mctr[3]
-
-            def merge_minis(rcnt=rcnt, mcnt=mcnt):
-                # the destination cascade is PAGED: lanes' running
-                # counts cluster (they all advance at the traffic
-                # rate), so per merge usually ONE 16-slot page is
-                # occupied — the page guards cost a handful of
-                # cross-lane reduces per 256 samples and skip ~3/4 of
-                # the select cascade (vs the unpaged form; correctness
-                # does not depend on clustering — a worst-case spread
-                # just fires every page)
-                PG = min(16, compact_slots)   # PG=8 measured slower
-                #                               (more guard reduces)
-                for m in range(MINI_SLOTS):
-                    def do_m(m=m):
-                        occ = mcnt > m
-                        dstv = rcnt + m
-                        write = occ & (dstv < compact_slots)
-                        for pg in range(0, compact_slots, PG):
-                            hit = write & (dstv >= pg) & (dstv < pg + PG)
-
-                            def do_pg(pg=pg, hit=hit, dstv=dstv):
-                                # clamp the LAST page: compact_slots
-                                # need not be a PG multiple, and a
-                                # static ref index past the buffer is
-                                # undefined on the Mosaic backend
-                                for d in range(pg, min(pg + PG,
-                                                       compact_slots)):
-                                    sel = hit & (dstv == d)
-                                    for w in range(REG_WORDS):
-                                        cw_ref[d, w] = jnp.where(
-                                            sel, mwords[m, w],
-                                            cw_ref[d, w])
-                                    cf_ref[d, 0] = jnp.where(
-                                        sel, mlen[m], cf_ref[d, 0])
-                                    cf_ref[d, 1] = jnp.where(
-                                        sel, mstart[m], cf_ref[d, 1])
-                                    cf_ref[d, 2] = jnp.where(
-                                        sel, mend[m], cf_ref[d, 2])
-
-                            pl.when(jnp.any(hit))(do_pg)
-                    if m == 0:
-                        do_m()
-                    else:
-                        pl.when(jnp.any(mcnt > m))(do_m)
-
-            pl.when(flush)(merge_minis)
-            mctr[3] = jnp.where(flush, rcnt + mcnt, rcnt)
-        elif "flush" not in strip:
-            @pl.when(flush)
-            def _():
-                c = u // bodies_per_hchunk
-                mwords_ref[pl.ds(c, 1)] = mwords[:][None]
-                mlen_ref[pl.ds(c, 1)] = mlen[:][None]
-                mstart_ref[pl.ds(c, 1)] = mstart[:][None]
-                mend_ref[pl.ds(c, 1)] = mend[:][None]
-                mcnt_ref[pl.ds(c, 1)] = mcnt[None]
-
-        mctr[0] = jnp.where(flush, 0, mcnt)
-        mctr[1] = ml2
-        mctr[2] = mover
-        return 0
-
-    jax.lax.fori_loop(0, tc // unroll, body, 0)
-
-    @pl.when(chunk == cpt - 1)
-    def _():
-        pll_out[:] = state[0]
-        prev_out[:] = state[1]
-        last_out[:] = state[2]
-        hst_out[:] = hst[:]
-        sreg_out[:] = sreg[:]
-        lost2_out[:] = mctr[1]
-        over_out[:] = mctr[2]
-        if compact_slots is not None:
-            cnt_ref[:] = mctr[3]    # raw running count (clip host-side)
+    carry0 = (sum((load(j) for j in range(_PREFETCH)), ()),
+              tuple(hist_ref[i, :] for i in range(C.FIR_LEN)),
+              state_ref[0, :], state_ref[1, :], state_ref[2, :],
+              tuple(state_ref[3 + i, :] for i in range(8)),
+              tuple(reg_ref[w, :] for w in range(REG_WORDS)),
+              zero, zero, zero, zero)
+    (_ahead, _win, pll, prev, lastbit, hv, srg,
+     cnt, _ccnt, over, lost2) = jax.lax.fori_loop(0, n_slots, body, carry0)
+    for i, v in enumerate((pll, prev, lastbit) + tuple(hv)):
+        state_out[i, :] = v
+    for w in range(REG_WORDS):
+        reg_out[w, :] = srg[w]
+    ctr_out[0, :] = cnt
+    ctr_out[1, :] = lost2
+    ctr_out[2, :] = over
 
 
-def _hdlc_state_to_tiles(h: HdlcState, sublanes: int = SUBLANES
-                         ) -> Tuple[jax.Array, jax.Array]:
-    """HdlcState ([S] vars + [S, REG_WORDS] register) ->
-    ([NT*HDLC_VARS, sublanes, 128] int32, [NT*REG_WORDS, sublanes, 128]
-    uint32), stream-tile-major."""
-    vars_ = jnp.stack([h.state, h.last, h.antallpreamble, h.nstartsign,
-                       h.antallenner, h.bitstuff, h.bufferpos,
-                       h.data_start])                     # [8, S]
-    s = h.state.shape[0]
-    ts = sublanes * LANES
-    nt = n_stream_tiles(s, sublanes)
-    pad = nt * ts - s
-    vt = jnp.pad(vars_, ((0, 0), (0, pad))) \
-        .reshape(HDLC_VARS, nt, ts).transpose(1, 0, 2) \
-        .reshape(nt * HDLC_VARS, sublanes, LANES)
-    rt = jnp.pad(h.shiftreg.T, ((0, 0), (0, pad))) \
-        .reshape(REG_WORDS, nt, ts).transpose(1, 0, 2) \
-        .reshape(nt * REG_WORDS, sublanes, LANES)
-    return vt, rt
+def _fir_kernel(x_ref, hist_ref, out_ref, *, interpret: bool):
+    """The decode kernel's FIR alone: x_ref [T4, bs] raw samples,
+    hist_ref [FIR_LEN, bs], out_ref [T4, bs] filtered (time-major)."""
+
+    def body(g, win):
+        t0 = 4 * g
+        win = list(win) + [x_ref[t0 + k, :].astype(jnp.float32)
+                           for k in range(4)]
+        for k in range(4):
+            out_ref[t0 + k, :] = _fir(win, k, interpret)
+        return tuple(win[4:])
+
+    jax.lax.fori_loop(0, x_ref.shape[0] // 4, body,
+                      tuple(hist_ref[i, :] for i in range(C.FIR_LEN)))
 
 
-def _tiles_to_hdlc_state(vt: jax.Array, rt: jax.Array, s: int,
-                         sublanes: int = SUBLANES) -> HdlcState:
-    ts = sublanes * LANES
-    nt = n_stream_tiles(s, sublanes)
-    v = vt.reshape(nt, HDLC_VARS, ts).transpose(1, 0, 2) \
-        .reshape(HDLC_VARS, nt * ts)[:, :s]
-    r = rt.reshape(nt, REG_WORDS, ts).transpose(1, 0, 2) \
-        .reshape(REG_WORDS, nt * ts)[:, :s]
-    return HdlcState(
-        state=v[0], last=v[1], antallpreamble=v[2], nstartsign=v[3],
-        antallenner=v[4], bitstuff=v[5], bufferpos=v[6], data_start=v[7],
-        shiftreg=r.T)
-
-
-def pipeline_fused(samples: jax.Array, n_valid: jax.Array,
-                   history: jax.Array, dpll: DpllState, hdlc: HdlcState,
-                   block_base: jax.Array | int = 0,
-                   time_chunk: int = 512, interpret: bool | None = None,
-                   unroll: int = 32, guarded: bool = True,
-                   prefiltered: bool = False, fir_mode: str = "vpu",
-                   lost2_lo: jax.Array | None = None,
-                   lost2_hi: jax.Array | None = None,
-                   sublanes: int = SUBLANES,
-                   assume_full: bool = False,
-                   strip: str = "", landing: str = "body",
-                   pretiled_streams: int | None = None):
-    """Fused raw-samples -> frame-candidates decode step.
-
-    samples: int16/float32 [S, T] (any S — streams beyond 1024 ride
-    extra grid tiles), T a multiple of time_chunk (and time_chunk of
-    4*HDLC_CHUNK).  Returns (cand_valid [S, K] bool, cw [S, K,
-    REG_WORDS] uint32, cl [S, K], cs [S, K], ce [S, K], lost2 [S],
-    over [S], new_history, new_dpll, new_hdlc) — bit-identical to
-    fir_exact + dpll_scan + group_reduce_bits + hdlc_scan; feed the
-    candidates to demod.compact_candidates.  lost2_lo/lost2_hi: see
-    demod.hdlc_scan.
-
-    prefiltered=True: ``samples`` is the already-FILTERED float32 block
-    (e.g. from the MXU convolution fir.fir_conv) — the in-kernel FIR is
-    skipped and ``history`` (the caller-maintained raw-sample carry) is
-    passed through unchanged.
-
-    sublanes: stream-tile height.  The DPLL/HDLC recurrence is a
-    latency-bound dependent chain, so a [8, 128] tile leaves the VPU
-    mostly idle between chain steps; sublanes=16/32 runs 2048/4096
-    streams' INDEPENDENT chains through the same op sequence,
-    pipelining the latency (bit-identical results — lanes never
-    interact).
-
-    assume_full: static promise that ``n_valid == T`` (every sample
-    real) — the per-sample valid gates (three state selects + the emit
-    mask) compile out of the hot loop.  Full-block throughput callers
-    (bench steady state, sharded steady state) qualify; short final
-    blocks must use the general kernel.  Results are bit-identical to
-    assume_full=False with n_valid == T (tested).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    sb = sublanes
-    if pretiled_streams is not None:
-        # samples is ALREADY [nt*t, sb, LANES] stream-tile-major (the
-        # caller owns the layout; used to isolate / avoid the [S, T] ->
-        # tiles transpose, which costs real HBM passes at scale)
-        s = pretiled_streams
-        nt = n_stream_tiles(s, sb)
-        t = samples.shape[0] // nt
-        tiles = samples
-    else:
-        s, t = samples.shape
-        nt = n_stream_tiles(s, sb)
-    assert t % time_chunk == 0 and time_chunk % unroll == 0 \
-        and unroll % 4 == 0 and time_chunk % (4 * HDLC_CHUNK) == 0, \
-        (t, time_chunk, unroll)
-    # body landing leans on the frame spacing argument: a stop flag and
-    # the next register append are >= ~27 slots apart, so a body of
-    # <= 24 slots sees at most one emission with stable srg/data_start
-    assert landing == "slot" or unroll // 4 <= 24, (landing, unroll)
-    ts = sb * LANES
-    cpt = t // time_chunk
-    nch = time_chunk // (4 * HDLC_CHUNK)     # HDLC chunks per grid step
-    n_chunks = t // (4 * HDLC_CHUNK)         # HDLC chunks per tile
-    if pretiled_streams is None:
-        # int16 stays int16 through the transpose (half the HBM
-        # traffic); the kernel casts per register tile
-        tiles, _pad = _to_tiles(samples, sb)
-    hist_t = jnp.pad(history, ((0, nt * ts - s), (0, 0))) \
-        .reshape(nt, ts, C.FIR_LEN).transpose(0, 2, 1) \
-        .reshape(nt * C.FIR_LEN, sb, LANES)
-    hvt, hrt = _hdlc_state_to_tiles(hdlc, sb)
-
-    tile2 = pl.BlockSpec((sb, LANES), lambda i, nv: (i // cpt, 0))
-    base_kernel = functools.partial(
-        _pipeline_kernel, unroll=unroll, guarded=guarded,
-        chunks_per_tile=cpt, with_fir=not prefiltered, fir_mode=fir_mode,
-        assume_full=assume_full, strip=strip, landing=landing)
-    if fir_mode == "mxu":
-        # the banded taps matrix rides as a (replicated) kernel input —
-        # Pallas kernels cannot capture array constants
-        def kernel_fn(scal, x, pll, prev, last, hin, hst0, srg0, amat,
-                      *rest):
-            return base_kernel(scal, x, pll, prev, last, hin, hst0, srg0,
-                               *rest, amat_ref=amat)
-        extra_in = [jnp.asarray(_fir_band_matrix(unroll))]
-        extra_specs = [pl.BlockSpec((unroll, C.FIR_LEN + unroll),
-                                    lambda i, nv: (0, 0))]
-    else:
-        kernel_fn = base_kernel
-        extra_in, extra_specs = [], []
-    kernel = pl.pallas_call(
-        kernel_fn,
-        # the default Mosaic scoped-VMEM budget (16 MB) rejects wide
-        # stream tiles (sublanes=64's mini-slot scratch alone is ~10 MB);
-        # v5e has 128 MB of VMEM — raise the cap so tile width is a real
-        # tuning axis
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nt * cpt,),
-            in_specs=[
-                pl.BlockSpec((time_chunk, sb, LANES),
-                             lambda i, nv: (i, 0, 0)),
-                tile2, tile2, tile2,
-                pl.BlockSpec((C.FIR_LEN, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                pl.BlockSpec((HDLC_VARS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                pl.BlockSpec((REG_WORDS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                *extra_specs,
-            ],
-            out_specs=[
-                pl.BlockSpec((nch, MINI_SLOTS, REG_WORDS, sb, LANES),
-                             lambda i, nv: (i, 0, 0, 0, 0)),
-                pl.BlockSpec((nch, MINI_SLOTS, sb, LANES),
-                             lambda i, nv: (i, 0, 0, 0)),
-                pl.BlockSpec((nch, MINI_SLOTS, sb, LANES),
-                             lambda i, nv: (i, 0, 0, 0)),
-                pl.BlockSpec((nch, MINI_SLOTS, sb, LANES),
-                             lambda i, nv: (i, 0, 0, 0)),
-                pl.BlockSpec((nch, sb, LANES),
-                             lambda i, nv: (i, 0, 0)),
-                tile2, tile2, tile2,
-                pl.BlockSpec((HDLC_VARS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                pl.BlockSpec((REG_WORDS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                tile2, tile2,
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((3, sb, LANES), jnp.int32),
-                pltpu.VMEM((C.FIR_LEN, sb, LANES), jnp.float32),
-                pltpu.VMEM((HDLC_VARS, sb, LANES), jnp.int32),
-                pltpu.VMEM((REG_WORDS, sb, LANES), jnp.uint32),
-                pltpu.VMEM((MINI_SLOTS, REG_WORDS, sb, LANES),
-                           jnp.uint32),
-                pltpu.VMEM((MINI_SLOTS, sb, LANES), jnp.int32),
-                pltpu.VMEM((MINI_SLOTS, sb, LANES), jnp.int32),
-                pltpu.VMEM((MINI_SLOTS, sb, LANES), jnp.int32),
-                pltpu.VMEM((3, sb, LANES), jnp.int32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((nt * n_chunks, MINI_SLOTS, REG_WORDS,
-                                  sb, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((nt * n_chunks, MINI_SLOTS, sb,
-                                  LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * n_chunks, MINI_SLOTS, sb,
-                                  LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * n_chunks, MINI_SLOTS, sb,
-                                  LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * n_chunks, sb, LANES),
-                                 jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * HDLC_VARS, sb, LANES),
-                                 jnp.int32),
-            jax.ShapeDtypeStruct((nt * REG_WORDS, sb, LANES),
-                                 jnp.uint32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-        ],
+def fir_fused(samples: jax.Array, history: jax.Array,
+              interpret: bool = False) -> jax.Array:
+    """The decode kernel's in-kernel FIR as a standalone kernel, for
+    comparing its arithmetic with ops.fir.fir_exact on the card.
+    samples: [S, T]; history: float32 [S, 36].  Returns float32 [S, T]."""
+    _check_platform(interpret)
+    s, t = samples.shape
+    bs = STREAM_BLOCK
+    s_pad = -(-s // bs) * bs
+    t4 = -(-t // 4) * 4
+    x_t = jnp.pad(samples, ((0, s_pad - s), (0, t4 - t))).T
+    hist_t = jnp.pad(history.astype(jnp.float32),
+                     ((0, s_pad - s), (0, 0))).T
+    out = pl.pallas_call(
+        functools.partial(_fir_kernel, interpret=interpret),
+        grid=(s_pad // bs,),
+        in_specs=[pl.BlockSpec((t4, bs), lambda i: (0, i)),
+                  pl.BlockSpec((C.FIR_LEN, bs), lambda i: (0, i))],
+        out_specs=pl.BlockSpec((t4, bs), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((t4, s_pad), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )
+        name="gnuais_fir",
+    )(x_t, hist_t)
+    return out.T[:s, :t]
+
+
+def carry_history(samples: jax.Array, history: jax.Array,
+                  n_valid: jax.Array) -> jax.Array:
+    """Last FIR_LEN valid raw samples of [history | samples] as float32
+    [S, 36], without materialising the concatenation: the window
+    full[nv : nv+36] lies inside samples (nv >= 36) or inside the first
+    72 columns (nv < 36)."""
+    nv = jnp.asarray(n_valid, dtype=jnp.int32)
+    # clamp: a negative start would wrap to the end of the block
+    tail = jax.lax.dynamic_slice_in_dim(
+        samples, jnp.maximum(nv - C.FIR_LEN, 0), C.FIR_LEN,
+        axis=1).astype(jnp.float32)
+    small = jnp.concatenate([history, tail], axis=1)    # [S, 72]
+    return jax.lax.dynamic_slice_in_dim(
+        small, jnp.minimum(nv, C.FIR_LEN), C.FIR_LEN, axis=1)
+
+
+def decode_fused(samples: jax.Array, n_valid: jax.Array,
+                 history: jax.Array, dpll: DpllState, hdlc: HdlcState,
+                 frame_slots: int = 32, block_base: jax.Array | int = 0,
+                 lost2_lo: jax.Array | None = None,
+                 lost2_hi: jax.Array | None = None,
+                 interpret: bool = False
+                 ) -> Tuple[FrameBatch, jax.Array, DpllState, HdlcState]:
+    """Raw samples -> frames in one kernel.
+
+    samples: int16 [S, T] (any S, any T); lost2_lo / lost2_hi: scalars
+    or per-stream [S]; the other arguments as in
+    runtime.pipeline.decode_block.  Returns (frames, history', dpll',
+    hdlc'), bit-identical to fir_exact -> dpll_scan -> group_reduce_bits
+    -> hdlc_scan (crcfail is zero: the device CRC filter is a separate
+    pass).  interpret=True runs the kernel in the Pallas interpreter
+    (tests); without it the kernel needs the GPU.
+    """
+    _check_platform(interpret)
+    s, t = samples.shape
+    bs = STREAM_BLOCK
+    s_pad = -(-s // bs) * bs
+    fs = frame_slots
+    # whole bit slots, plus the prefetched slots past the end
+    t4 = -(-t // 4) * 4 + 4 * _PREFETCH
+    x_t = jnp.pad(samples, ((0, s_pad - s), (0, t4 - t))).T   # [T4, Sp]
+
+    def cols(v):                              # [S, ...] -> [..., Sp]
+        v = jnp.pad(v, ((0, s_pad - s),) + ((0, 0),) * (v.ndim - 1))
+        return jnp.moveaxis(v, 0, -1)
+
+    hist_t = cols(history.astype(jnp.float32))
+    state_t = cols(jnp.stack([dpll.pll, dpll.prev, dpll.lastbit,
+                              hdlc.state, hdlc.last, hdlc.antallpreamble,
+                              hdlc.nstartsign, hdlc.antallenner,
+                              hdlc.bitstuff, hdlc.bufferpos,
+                              hdlc.data_start], axis=1).astype(jnp.int32))
+    reg_t = cols(hdlc.shiftreg.astype(jnp.uint32))
     if lost2_lo is None:
         lost2_lo = jnp.int32(-2**31)
     if lost2_hi is None:
         lost2_hi = jnp.int32(2**31 - 1)
-    scal = jnp.stack([jnp.asarray(n_valid, jnp.int32),
-                      jnp.asarray(block_base, jnp.int32),
-                      jnp.asarray(lost2_lo, jnp.int32),
-                      jnp.asarray(lost2_hi, jnp.int32)])
-    (mwords_t, mlen_t, mstart_t, mend_t, mcnt_t, pll2, prev2, last2,
-     hvt2, hrt2, lost2_t, over_t) = kernel(
-        scal, tiles,
-        _state_to_tiles(dpll.pll, sb),
-        _state_to_tiles(dpll.prev, sb),
-        _state_to_tiles(dpll.lastbit, sb),
-        hist_t, hvt, hrt, *extra_in)
+    scal = jnp.stack([jnp.asarray(v, jnp.int32)
+                      for v in (n_valid, block_base)])
+    gate_t = cols(jnp.stack([jnp.broadcast_to(jnp.asarray(v, jnp.int32),
+                                              (s,))
+                             for v in (lost2_lo, lost2_hi)], axis=1))
 
-    # unpack candidates to stream-major [S, K] (chunk-major, mini-minor
-    # = arrival order, matching hdlc_scan's compaction)
-    k = n_chunks * MINI_SLOTS
-    cw = mwords_t.reshape(nt, n_chunks, MINI_SLOTS, REG_WORDS, ts) \
-        .transpose(0, 4, 1, 2, 3).reshape(nt * ts, k, REG_WORDS)[:s]
-    cl = mlen_t.reshape(nt, n_chunks, MINI_SLOTS, ts) \
-        .transpose(0, 3, 1, 2).reshape(nt * ts, k)[:s]
-    cs = mstart_t.reshape(nt, n_chunks, MINI_SLOTS, ts) \
-        .transpose(0, 3, 1, 2).reshape(nt * ts, k)[:s]
-    ce = mend_t.reshape(nt, n_chunks, MINI_SLOTS, ts) \
-        .transpose(0, 3, 1, 2).reshape(nt * ts, k)[:s]
-    cnt = mcnt_t.reshape(nt, n_chunks, ts) \
-        .transpose(0, 2, 1).reshape(nt * ts, n_chunks)[:s]
-    cand_valid = (jnp.arange(MINI_SLOTS)[None, None, :]
-                  < cnt[:, :, None]).reshape(s, k)
-    lost2 = lost2_t.reshape(-1)[:s]
-    over = over_t.reshape(-1)[:s]
+    def by_cols(rows_):
+        return pl.BlockSpec((rows_, bs), lambda i: (0, i))
 
-    # carried FIR history: last 36 valid raw samples (XLA side — the
-    # kernel's in-flight history sees pad zeros past n_valid).  In
-    # prefiltered mode the caller owns the raw-sample carry.
-    if prefiltered:
-        new_history = history
-    elif pretiled_streams is not None:
-        # tiled layout: the tail rows of each stream tile (full blocks
-        # only — the pretiled fast path asserts n_valid == t upstream)
-        new_history = (tiles.reshape(nt, t, sb, LANES)[:, t - C.FIR_LEN:]
-                       .transpose(0, 2, 3, 1)
-                       .reshape(nt * ts, C.FIR_LEN)[:s]
-                       .astype(jnp.float32))
-    else:
-        new_history = _carry_history(samples, history, n_valid)
-
-    new_dpll = DpllState(
-        pll=_tiles_to_state(pll2, s),
-        prev=_tiles_to_state(prev2, s),
-        lastbit=_tiles_to_state(last2, s),
-    )
-    new_hdlc = _tiles_to_hdlc_state(hvt2, hrt2, s, sb)
-    return (cand_valid, cw, cl, cs, ce, lost2, over,
-            new_history, new_dpll, new_hdlc)
-
-
-def pipeline_fused_compact(samples: jax.Array, n_valid: jax.Array,
-                           history: jax.Array, dpll: DpllState,
-                           hdlc: HdlcState, frame_slots: int = 32,
-                           block_base: jax.Array | int = 0,
-                           time_chunk: int = 512,
-                           interpret: bool | None = None,
-                           unroll: int = 32, guarded: bool = True,
-                           fir_mode: str = "vpu",
-                           lost2_lo: jax.Array | None = None,
-                           lost2_hi: jax.Array | None = None,
-                           sublanes: int = SUBLANES,
-                           assume_full: bool = False,
-                           pretiled_streams: int | None = None):
-    """pipeline_fused with IN-KERNEL candidate compaction.
-
-    Same decode semantics, but the frame slots come out of the kernel
-    already dense: per stream, ``words [S, F, REG_WORDS]``,
-    ``length/start/end [S, F]`` (F = frame_slots) in arrival order with
-    zeroed empty slots, plus ``count_raw [S]`` (unclipped emission
-    count), ``lost2 [S]`` and ``over [S]`` — exactly what
-    demod.compact_candidates would produce from the mini-buffer stream
-    (bit-identical; pinned by tests), without ever materializing the
-    ~99%-empty [S, K] candidate axis in HBM.  The flagship profile
-    attributed ~45% of post-kernel glue to that axis (write, transpose,
-    gather); here the XLA side reads back ~19 MB of dense slots.
-
-    Returns (count_raw, words, length, start, end, lost2, over,
-    new_history, new_dpll, new_hdlc).
-
-    NOTE: the tiling/history/state marshalling here deliberately
-    mirrors pipeline_fused line for line (only the output side
-    differs: dense slot blocks instead of the mini-buffer stream).  A
-    change to the tile layout, history carry or scalar packing must be
-    applied to BOTH wrappers — the compact parity tests
-    (test_fused_pipeline / test_on_tpu) catch a divergence.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    sb = sublanes
-    if pretiled_streams is not None:
-        s = pretiled_streams
-        nt = n_stream_tiles(s, sb)
-        t = samples.shape[0] // nt
-        tiles = samples
-    else:
-        s, t = samples.shape
-        nt = n_stream_tiles(s, sb)
-    assert t % time_chunk == 0 and time_chunk % unroll == 0 \
-        and unroll % 4 == 0 and time_chunk % (4 * HDLC_CHUNK) == 0, \
-        (t, time_chunk, unroll)
-    assert unroll // 4 <= 24      # body landing (see pipeline_fused)
-    ts = sb * LANES
-    cpt = t // time_chunk
-    F = frame_slots
-    if pretiled_streams is None:
-        tiles, _pad = _to_tiles(samples, sb)
-    hist_t = jnp.pad(history, ((0, nt * ts - s), (0, 0))) \
-        .reshape(nt, ts, C.FIR_LEN).transpose(0, 2, 1) \
-        .reshape(nt * C.FIR_LEN, sb, LANES)
-    hvt, hrt = _hdlc_state_to_tiles(hdlc, sb)
-
-    tile2 = pl.BlockSpec((sb, LANES), lambda i, nv: (i // cpt, 0))
-    base_kernel = functools.partial(
-        _pipeline_kernel, unroll=unroll, guarded=guarded,
-        chunks_per_tile=cpt, with_fir=True, fir_mode=fir_mode,
-        assume_full=assume_full, landing="body", compact_slots=F)
-    if fir_mode == "mxu":
-        def kernel_fn(scal, x, pll, prev, last, hin, hst0, srg0, amat,
-                      *rest):
-            return base_kernel(scal, x, pll, prev, last, hin, hst0, srg0,
-                               *rest, amat_ref=amat)
-        extra_in = [jnp.asarray(_fir_band_matrix(unroll))]
-        extra_specs = [pl.BlockSpec((unroll, C.FIR_LEN + unroll),
-                                    lambda i, nv: (0, 0))]
-    else:
-        kernel_fn = base_kernel
-        extra_in, extra_specs = [], []
-    kernel = pl.pallas_call(
-        kernel_fn,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(nt * cpt,),
-            in_specs=[
-                pl.BlockSpec((time_chunk, sb, LANES),
-                             lambda i, nv: (i, 0, 0)),
-                tile2, tile2, tile2,
-                pl.BlockSpec((C.FIR_LEN, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                pl.BlockSpec((HDLC_VARS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                pl.BlockSpec((REG_WORDS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                *extra_specs,
-            ],
-            out_specs=[
-                # revisited per-tile blocks: the candidate buffer lives
-                # in VMEM for the whole tile and flushes once
-                pl.BlockSpec((F, REG_WORDS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0, 0)),
-                pl.BlockSpec((F, 3, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0, 0)),
-                tile2,
-                tile2, tile2, tile2,
-                pl.BlockSpec((HDLC_VARS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                pl.BlockSpec((REG_WORDS, sb, LANES),
-                             lambda i, nv: (i // cpt, 0, 0)),
-                tile2, tile2,
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((3, sb, LANES), jnp.int32),
-                pltpu.VMEM((C.FIR_LEN, sb, LANES), jnp.float32),
-                pltpu.VMEM((HDLC_VARS, sb, LANES), jnp.int32),
-                pltpu.VMEM((REG_WORDS, sb, LANES), jnp.uint32),
-                pltpu.VMEM((MINI_SLOTS, REG_WORDS, sb, LANES),
-                           jnp.uint32),
-                pltpu.VMEM((MINI_SLOTS, sb, LANES), jnp.int32),
-                pltpu.VMEM((MINI_SLOTS, sb, LANES), jnp.int32),
-                pltpu.VMEM((MINI_SLOTS, sb, LANES), jnp.int32),
-                pltpu.VMEM((4, sb, LANES), jnp.int32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((nt * F, REG_WORDS, sb, LANES),
-                                 jnp.uint32),
-            jax.ShapeDtypeStruct((nt * F, 3, sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * HDLC_VARS, sb, LANES),
-                                 jnp.int32),
-            jax.ShapeDtypeStruct((nt * REG_WORDS, sb, LANES),
-                                 jnp.uint32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nt * sb, LANES), jnp.int32),
-        ],
+    slot_spec = pl.BlockSpec((bs, fs), lambda i: (i, 0))
+    words_spec = pl.BlockSpec((bs, fs, REG_WORDS), lambda i: (i, 0, 0))
+    words_sd = jax.ShapeDtypeStruct((s_pad, fs, REG_WORDS), jnp.uint32)
+    slot_sd = jax.ShapeDtypeStruct((s_pad, fs), jnp.int32)
+    call = pl.pallas_call(
+        functools.partial(_decode_kernel, frame_slots=fs,
+                          interpret=interpret),
+        grid=(s_pad // bs,),
+        in_specs=[pl.BlockSpec((2,), lambda i: (0,)), by_cols(t4),
+                  by_cols(C.FIR_LEN), by_cols(_N_STATE),
+                  by_cols(REG_WORDS), by_cols(2), words_spec, slot_spec,
+                  slot_spec, slot_spec],
+        out_specs=[words_spec, slot_spec, slot_spec, slot_spec,
+                   by_cols(_N_STATE), by_cols(REG_WORDS), by_cols(3)],
+        out_shape=[words_sd, slot_sd, slot_sd, slot_sd,
+                   jax.ShapeDtypeStruct((_N_STATE, s_pad), jnp.int32),
+                   jax.ShapeDtypeStruct((REG_WORDS, s_pad), jnp.uint32),
+                   jax.ShapeDtypeStruct((3, s_pad), jnp.int32)],
+        # empty slots stay zero, like demod.init_frames
+        input_output_aliases={6: 0, 7: 1, 8: 2, 9: 3},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
+        name="gnuais_decode",
     )
-    if lost2_lo is None:
-        lost2_lo = jnp.int32(-2**31)
-    if lost2_hi is None:
-        lost2_hi = jnp.int32(2**31 - 1)
-    scal = jnp.stack([jnp.asarray(n_valid, jnp.int32),
-                      jnp.asarray(block_base, jnp.int32),
-                      jnp.asarray(lost2_lo, jnp.int32),
-                      jnp.asarray(lost2_hi, jnp.int32)])
-    (cw_t, cf_t, cnt_t, pll2, prev2, last2,
-     hvt2, hrt2, lost2_t, over_t) = kernel(
-        scal, tiles,
-        _state_to_tiles(dpll.pll, sb),
-        _state_to_tiles(dpll.prev, sb),
-        _state_to_tiles(dpll.lastbit, sb),
-        hist_t, hvt, hrt, *extra_in)
-
-    # dense unpack: [nt*F, W, sb, LANES] -> [S, F, W] (19 MB-scale)
-    words = cw_t.reshape(nt, F, REG_WORDS, ts).transpose(0, 3, 1, 2) \
-        .reshape(nt * ts, F, REG_WORDS)[:s]
-    cf = cf_t.reshape(nt, F, 3, ts).transpose(0, 3, 1, 2) \
-        .reshape(nt * ts, F, 3)[:s]
-    length, start, end = cf[:, :, 0], cf[:, :, 1], cf[:, :, 2]
-    count_raw = _tiles_to_state(cnt_t, s)
-    lost2 = _tiles_to_state(lost2_t, s)
-    over = _tiles_to_state(over_t, s)
-
-    if pretiled_streams is not None:
-        new_history = (tiles.reshape(nt, t, sb, LANES)[:, t - C.FIR_LEN:]
-                       .transpose(0, 2, 3, 1)
-                       .reshape(nt * ts, C.FIR_LEN)[:s]
-                       .astype(jnp.float32))
-    else:
-        new_history = _carry_history(samples, history, n_valid)
-
-    new_dpll = DpllState(
-        pll=_tiles_to_state(pll2, s),
-        prev=_tiles_to_state(prev2, s),
-        lastbit=_tiles_to_state(last2, s),
-    )
-    new_hdlc = _tiles_to_hdlc_state(hvt2, hrt2, s, sb)
-    return (count_raw, words, length, start, end, lost2, over,
-            new_history, new_dpll, new_hdlc)
+    (words, length, start, end, state2, reg2, ctr) = call(
+        scal, x_t, hist_t, state_t, reg_t, gate_t,
+        jnp.zeros(words_sd.shape, words_sd.dtype),
+        jnp.zeros(slot_sd.shape, jnp.int32),
+        jnp.zeros(slot_sd.shape, jnp.int32),
+        jnp.zeros(slot_sd.shape, jnp.int32))
+    state2 = state2[:, :s]
+    count_raw = ctr[0, :s]
+    frames = FrameBatch(
+        words=words[:s], length=length[:s], start=start[:s], end=end[:s],
+        count=jnp.minimum(count_raw, fs), lost2=ctr[1, :s],
+        dropped=ctr[2, :s] + jnp.maximum(count_raw - fs, 0),
+        crcfail=jnp.zeros((s,), jnp.int32))
+    new_dpll = DpllState(pll=state2[0], prev=state2[1], lastbit=state2[2])
+    new_hdlc = HdlcState(
+        state=state2[3], last=state2[4], antallpreamble=state2[5],
+        nstartsign=state2[6], antallenner=state2[7], bitstuff=state2[8],
+        bufferpos=state2[9], data_start=state2[10],
+        shiftreg=reg2[:, :s].T)
+    return (frames, carry_history(samples, history, n_valid), new_dpll,
+            new_hdlc)

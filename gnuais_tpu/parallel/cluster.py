@@ -1,17 +1,18 @@
-"""Multi-host deployment: DCN-connected pod-slice topology.
+"""Multi-host deployment: a fleet of hosts with local devices.
 
 The reference is strictly single-node; its multi-host analog here is a
 fleet of hosts, each ingesting its own capture streams and decoding on
-its local chips, with a global mesh for stats reduction and (optional)
+its local devices, with a global mesh for stats reduction and (optional)
 time-sharded decode of very-long streams across hosts.
 
 Design (BASELINE config 5):
  - every host runs the same program under the standard JAX
    multi-controller runtime (`jax.distributed.initialize`);
- - the mesh is (hosts, chips_per_host) reshaped to (streams, time):
-   stream sharding rides DCN only at setup (streams never communicate),
-   halo exchange for time sharding is laid out so neighboring time
-   shards sit on the SAME host's ICI where possible (`plan_mesh_axes`);
+ - the mesh is (hosts, devices_per_host) reshaped to (streams, time):
+   stream sharding crosses hosts only at setup (streams never
+   communicate), halo exchange for time sharding is laid out so
+   neighboring time shards sit on the SAME host where possible
+   (`plan_mesh_axes`);
  - frame drains are host-local: each host drains only its own stream
    rows (no cross-host readback);
  - stats (frame counters, samples/s) reduce with one psum per report
@@ -51,8 +52,8 @@ def plan_mesh_axes(n_devices: int, devices_per_host: int,
     """Choose (streams, time) axis sizes for n_devices total.
 
     time_shards devices cooperate on one long stream via halo exchange;
-    keeping time_shards <= devices_per_host keeps every halo hop on ICI
-    (ppermute between neighbors on one host) and off DCN.
+    keeping time_shards <= devices_per_host keeps every halo hop inside
+    one host (ppermute between neighbors) and off the host network.
     """
     if time_shards > devices_per_host:
         raise ValueError(

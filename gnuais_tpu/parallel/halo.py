@@ -4,7 +4,7 @@ The reference's circular-buffer tail copy (filter.c:129-134) carries the
 last 36 input samples between sequential blocks; when a long stream is
 split across devices along time, that carry becomes a neighbor exchange:
 each time-shard sends its trailing 36 raw samples to its right
-neighbor via ``ppermute`` over ICI, and shard 0 consumes the block-level
+neighbor via ``ppermute``, and shard 0 consumes the block-level
 carried history.  The FIR is then purely local — identical outputs to
 the sequential filter, no bits lost at shard edges.
 """

@@ -2,7 +2,7 @@
 
 Axes:
   streams — data parallel over independent capture streams (the primary
-            scaling axis; a v5e-8 runs 256+ streams as 32/chip)
+            scaling axis)
   time    — sequence parallel over time-blocks of one long stream, with
             overlap-save halos (FIR) and carry hand-off (decoder state)
 """

@@ -1,17 +1,17 @@
 """Sharded decode steps.
 
 ``make_sharded_decode``: the production scaling path — independent
-streams sharded over chips with ``shard_map`` (every op stays local;
+streams sharded over devices with ``shard_map`` (every op stays local;
 zero collectives in steady state, which is the whole point: AIS streams
-are embarrassingly parallel and the mesh should only pay ICI for
-control/stats).
+are embarrassingly parallel and the mesh should only pay interconnect
+traffic for control/stats).
 
 ``make_multichip_step``: the full 2-D (streams x time) step — true
 sequence parallelism by overlap-resync (the design proven bit-for-bit
 in ``parallel.timepar``, here run ON the mesh): every time shard
 decodes its own extended window [lead overlap | local block | tail
 extension] entirely locally, the overlap/extension raw samples arrive
-from neighbors via ``ppermute`` over ICI, and each completed frame is
+from neighbors via ``ppermute``, and each completed frame is
 kept by exactly one shard — the one whose own region contains the
 frame's data-start sample.  No filtered samples, bits, or frames are
 ever gathered along the time axis; the only time-axis traffic is the
@@ -54,6 +54,21 @@ DEFAULT_EXTENSION = 3072    # tail extension: > max frame
 # demod.HDLC_CHUNK note), so a 2*OWN_MARGIN window is unambiguous.
 OWN_MARGIN = 16
 
+# Wrong-size stops have no data start to own them by, so each shard
+# counts those whose stop lies in its own region shifted later by one
+# maximum frame (489 line bits, ~2,450 samples): a frame that straddles
+# the region start was seen whole, with converged state, by the
+# previous shard — whose tail extension covers the shift — while the
+# shard that cold-starts before it may misread it.
+STOP_LAG = 2560
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def stop_lag(extension: int) -> int:
+    """The wrong-size gate's shift for a given tail extension (the stop
+    decision needs a few bits past the flag inside the window)."""
+    return max(0, min(STOP_LAG, extension - 512))
+
 
 def make_sharded_decode(mesh: Mesh, frame_slots: int = 32,
                         exact_fir: bool = True,
@@ -62,12 +77,12 @@ def make_sharded_decode(mesh: Mesh, frame_slots: int = 32,
                         superblock: int = 1,
                         **decode_flags) -> Callable:
     """Returns jitted (samples [S,T], n_valid, carry) -> (carry', frames,
-    peak) with S sharded over the ``streams`` mesh axis.  The fused
-    flags select the flagship Pallas path inside each shard (the body
+    peak) with S sharded over the ``streams`` mesh axis.
+    fused_pipeline runs the GPU kernel inside each shard (the body
     stays collective-free either way).  superblock > 1: T is that many
     chained blocks decoded per dispatch (decode_superblock; FrameBatch
     leaves gain a leading [superblock] axis).  Extra keyword flags
-    (kernel_sublanes, lobe_fir, ...) pass through to decode_block."""
+    (interpret) pass through to decode_block."""
 
     def body(samples, n_valid, carry):
         if superblock > 1:
@@ -86,7 +101,7 @@ def make_sharded_decode(mesh: Mesh, frame_slots: int = 32,
         body, mesh=mesh,
         in_specs=(P("streams", None), P(), P("streams")),
         out_specs=(P("streams"), frames_spec, P("streams")),
-        # pallas_call outputs carry no vma annotation; the body is
+        # kernel outputs carry no vma annotation; the body is
         # collective-free so the varying-mesh-axes check adds nothing
         check_vma=False,
     )
@@ -116,9 +131,9 @@ def make_multichip_step(mesh: Mesh, frame_slots: int = 32,
                         overlap: int = DEFAULT_OVERLAP,
                         extension: int = DEFAULT_EXTENSION,
                         exact_fir: bool = True,
-                        fast_dpll: bool = False,
                         fused_pipeline: bool = False,
-                        multiproc: bool | None = None) -> Callable:
+                        multiproc: bool | None = None,
+                        interpret: bool = False) -> Callable:
     """2-D mesh step: streams data-parallel x time sequence-parallel.
 
     Returns jitted ``step(samples, valid_end, global_base, prev_tail,
@@ -136,6 +151,9 @@ def make_multichip_step(mesh: Mesh, frame_slots: int = 32,
                  time shard 0 in place of a left neighbor
       next_head  int16 [S, extension]: the samples following the block
                  (zeros at stream end) — consumed by the last shard
+      row_phase  optional int32 [S]: per-row DPLL grid-phase offset
+      row_first  optional [S]: rows whose samples[:, 0] is the start of
+                 their stream (default: global_base == 0)
 
     A streaming caller chains super-blocks exactly by handing each
     block's edges to its neighbors (see timepar.TimeParSession); frames
@@ -156,14 +174,16 @@ def make_multichip_step(mesh: Mesh, frame_slots: int = 32,
     if multiproc is None:
         multiproc = jax.process_count() > 1
 
+    lag = stop_lag(extension)
+
     def body(samples, valid_end, global_base, prev_tail, next_head,
-             row_phase):
+             row_phase, row_first):
         s_loc, t_loc = samples.shape
         assert t_loc >= overlap and t_loc >= extension, \
             (t_loc, overlap, extension)
         ti = jax.lax.axis_index("time")
 
-        # raw-sample halos over ICI: tail -> right neighbor (lead
+        # raw-sample halos: tail -> right neighbor (lead
         # overlap), head -> left neighbor (tail extension)
         tail = samples[:, t_loc - overlap:]
         head = samples[:, :extension]
@@ -198,15 +218,20 @@ def make_multichip_step(mesh: Mesh, frame_slots: int = 32,
             pll=jnp.zeros((s_loc,), jnp.int32) + pll0))
         # lost2 position gate: wrong-size stops are scalar-counted (no
         # slot/dedup machinery), so each shard counts only events whose
-        # stop position lies in its margin-free own region — the regions
-        # tile the timeline, so the union counts each event once, like
-        # the sequential chain (protodec.c:1107-1112)
+        # stop position lies in its own region shifted by STOP_LAG — the
+        # regions tile the timeline, so the union counts each event
+        # once, like the sequential chain (protodec.c:1107-1112).  A
+        # row's first shard at the start of its stream counts from the
+        # beginning (row_first [s_loc]: the window starts at the stream
+        # start, so its cold state is the sequential chain's own).
+        own = global_base + ti * t_loc
+        lo = jnp.where((row_first != 0) & (ti == 0), INT32_MIN, own + lag)
         _carry, frames, peak = pl.decode_block(
             win, local_nv, carry0, frame_slots=frame_slots,
-            exact_fir=exact_fir, fast_dpll=fast_dpll,
-            fused_pipeline=fused_pipeline, block_base=base,
-            lost2_lo=global_base + ti * t_loc,
-            lost2_hi=global_base + (ti + 1) * t_loc)
+            exact_fir=exact_fir, fused_pipeline=fused_pipeline,
+            interpret=interpret, block_base=base,
+            lost2_lo=lo.astype(jnp.int32),
+            lost2_hi=jnp.full((s_loc,), own + t_loc + lag, jnp.int32))
 
         # ownership: keep frames whose data start lies in the own region
         # (with jitter margin; the drain dedups boundary duplicates)
@@ -240,17 +265,18 @@ def make_multichip_step(mesh: Mesh, frame_slots: int = 32,
     sharded = jax.shard_map(
         body, mesh=mesh,
         in_specs=(P("streams", "time"), P(), P(),
-                  P("streams", None), P("streams", None), P("streams")),
+                  P("streams", None), P("streams", None), P("streams"),
+                  P("streams")),
         out_specs=out_specs,
         check_vma=False,
     )
 
     @functools.partial(jax.jit, static_argnames=())
     def _stepj(samples, valid_end, global_base, prev_tail, next_head,
-               row_phase):
+               row_phase, row_first):
         w, l, st, en, cnt, l2, pk = sharded(samples, valid_end,
                                             global_base, prev_tail,
-                                            next_head, row_phase)
+                                            next_head, row_phase, row_first)
         return TimeParFrames(w, l, st, en, cnt, l2, pk)
 
     def _dev(x, spec):
@@ -265,20 +291,26 @@ def make_multichip_step(mesh: Mesh, frame_slots: int = 32,
                                             lambda idx: x[idx])
 
     def step(samples, valid_end, global_base, prev_tail, next_head,
-             row_phase=None):
+             row_phase=None, row_first=None):
+        s = np.shape(samples)[0]
         if row_phase is None:
-            row_phase = np.zeros((np.shape(samples)[0],), np.int32)
+            row_phase = np.zeros((s,), np.int32)
+        if row_first is None:
+            row_first = np.full((s,), int(global_base) == 0, np.int32)
+        row_first = np.asarray(row_first, np.int32)
         if multiproc:
             samples = _dev(samples, P("streams", "time"))
             prev_tail = _dev(prev_tail, P("streams", None))
             next_head = _dev(next_head, P("streams", None))
             row_phase = _dev(row_phase, P("streams"))
+            row_first = _dev(row_first, P("streams"))
             valid_end = np.int32(valid_end)
             global_base = np.int32(global_base)
         else:
             row_phase = jnp.asarray(row_phase, jnp.int32)
+            row_first = jnp.asarray(row_first)
         return _stepj(samples, valid_end, global_base, prev_tail,
-                      next_head, row_phase)
+                      next_head, row_phase, row_first)
 
     return step
 

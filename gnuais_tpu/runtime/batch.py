@@ -38,13 +38,13 @@ class BatchSession:
     """Decode N independent mono streams in lock-step blocks."""
 
     def __init__(self, names: Sequence[str], block_len: int = 49_152,
-                 frame_slots: int = 64, fast_dpll: bool = False,
+                 frame_slots: int = 64, fused_pipeline: bool = False,
                  message_callback: Optional[Callable] = None):
         self.names = list(names)
         n = len(self.names)
         self.pipe = BatchPipeline(n, block_len=block_len,
                                   frame_slots=frame_slots,
-                                  fast_dpll=fast_dpll)
+                                  fused_pipeline=fused_pipeline)
         self.disp = [ChannelDispatcher("A") for _ in range(n)]
         self.message_callback = message_callback
 
@@ -81,12 +81,13 @@ class BatchSession:
 
 
 def decode_files(paths: Sequence[str], replicate: int = 1,
-                 block_len: int = 49_152, fast_dpll: bool = False
+                 block_len: int = 49_152, fused_pipeline: bool = False
                  ) -> BatchResult:
     """Load capture files (mono raw/WAV) and batch-decode.
 
     ``replicate`` tiles the file list to simulate larger fleets (the
     256-stream configuration from a handful of fixtures).
+    ``fused_pipeline`` decodes through the GPU kernel (ops/fused.py).
     """
     streams: List[np.ndarray] = []
     names: List[str] = []
@@ -101,5 +102,6 @@ def decode_files(paths: Sequence[str], replicate: int = 1,
             streams.append(loaded[p])
             # names must be unique: they key the per-stream counters
             names.append(f"s{len(names)}:{p.rsplit('/', 1)[-1]}")
-    sess = BatchSession(names, block_len=block_len, fast_dpll=fast_dpll)
+    sess = BatchSession(names, block_len=block_len,
+                        fused_pipeline=fused_pipeline)
     return sess.run(streams)

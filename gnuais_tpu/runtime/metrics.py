@@ -1,6 +1,6 @@
 """Receiver metrics: best-range tracking, audio level monitoring, and
 frame counters — the reference's runtime self-diagnostics surface
-(range.c, receiver.c:137-147, ais.c:250-262,296-310) plus TPU-side
+(range.c, receiver.c:137-147, ais.c:250-262,296-310) plus device
 throughput accounting.
 """
 
@@ -105,7 +105,7 @@ class LevelMonitor:
 
 @dataclass
 class ThroughputMeter:
-    """samples/s accounting for the TPU pipeline."""
+    """samples/s accounting for the device pipeline."""
     samples: int = 0
     seconds: float = 0.0
 

@@ -4,10 +4,10 @@ ingest/drain.
 JAX dispatch is asynchronous; the blocking points are the host-side
 frame readbacks.  This driver keeps up to ``depth`` blocks in flight:
 ``submit`` enqueues a block (device work starts immediately), and
-completed blocks drain lazily, so at the steady state the chip computes
+completed blocks drain lazily, so at the steady state the device computes
 block k+1 while the host unpacks block k's frames and prepares block
 k+2 — the double-buffered infeed SURVEY.md flags as required at
->1000x real-time rates (host feed must not starve the chips).
+>1000x real-time rates (host feed must not starve the devices).
 """
 
 from __future__ import annotations
@@ -29,16 +29,14 @@ class PipelinedDecoder:
     queue.  Results come out in submission order."""
 
     def __init__(self, n_streams: int, block_len: int = 49_152,
-                 frame_slots: int = 32, fast_dpll: bool = False,
-                 fused_frontend: bool = False, fused_pipeline: bool = False,
+                 frame_slots: int = 32, fused_pipeline: bool = False,
                  device_crc: bool = False, depth: int = 2,
-                 superblock: int = 1):
+                 superblock: int = 1, interpret: bool = False):
         self.pipe = pl.BatchPipeline(n_streams, block_len=block_len,
                                      frame_slots=frame_slots,
-                                     fast_dpll=fast_dpll,
-                                     fused_frontend=fused_frontend,
                                      fused_pipeline=fused_pipeline,
-                                     device_crc=device_crc)
+                                     device_crc=device_crc,
+                                     interpret=interpret)
         self.depth = depth
         # superblock > 1: each submit() may carry up to that many
         # block_len blocks, chained on device in ONE dispatch
@@ -62,17 +60,13 @@ class PipelinedDecoder:
                 samples = np.pad(samples, ((0, 0), (0, total - n)))
             p.carry, frames_k, _peak = pl.decode_superblock(
                 jnp.asarray(samples), jnp.int32(n), p.carry, k,
-                frame_slots=p.frame_slots, exact_fir=p.exact_fir,
-                fast_dpll=p.fast_dpll, fused_frontend=p.fused_frontend,
-                fused_pipeline=p.fused_pipeline, device_crc=p.device_crc)
+                **p.decode_flags())
             return (frames_k, k)
         if n < p.block_len:
             samples = np.pad(samples, ((0, 0), (0, p.block_len - n)))
         p.carry, frames, _peak = pl.decode_block(
             jnp.asarray(samples), jnp.int32(n), p.carry,
-            frame_slots=p.frame_slots, exact_fir=p.exact_fir,
-            fast_dpll=p.fast_dpll, fused_frontend=p.fused_frontend,
-            fused_pipeline=p.fused_pipeline, device_crc=p.device_crc)
+            **p.decode_flags())
         return (frames, 0)      # 0 = unstacked single block
 
     def _account(self, per_stream, lost2, dropped, crcfail,

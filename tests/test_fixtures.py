@@ -48,13 +48,15 @@ def test_jax_exact_matches_fixture(capture, expected_stdout):
 
 
 def test_jax_fast_matches_fixture(capture, expected_stdout):
+    """The fixture through ``backend fused``'s receiver: the fused
+    kernel (interpreted on the CPU) with the on-device CRC filter, at
+    the reference block framing."""
     res = DecodeSession(
-        lambda n: JaxReceiver(n, block_len=1024, fast_dpll=True)
-    ).run(capture, block_frames=1024)
-    # block framing differs from the reference (1024 vs 1020), which
-    # only affects line interleaving across channels — mono here, so
-    # output must still be identical
+        lambda n: JaxReceiver(n, fused_pipeline=True, device_crc=True,
+                              interpret=True)
+    ).run(capture)
     assert res.stdout_lines == expected_stdout
+    assert res.counters["A"] == (49, 0, 0)
 
 
 def test_batch_replicated_fixture(capture, expected_stdout):

@@ -78,10 +78,30 @@ def test_level_warning_parity_mesh_and_lanes_vs_oracle(oracle_bin,
     assert _level_lines(seq.stderr) == want, seq.stderr[-500:]
 
 
-def test_range_log_appears_in_mesh_run(tmp_path):
+class _TickingClock:
+    """Stands in for the CLI's time module: every reading is one second
+    after the last, so each StatsInterval check finds its interval
+    elapsed however fast the decode runs."""
+
+    def __init__(self):
+        self.now = 1.0e9
+
+    def time(self):
+        self.now += 1.0
+        return self.now
+
+
+def test_range_log_appears_in_mesh_run(tmp_path, monkeypatch, capsys,
+                                       caplog):
     """StatsInterval range logging runs in the mesh branch: a mesh
     decode of position frames with statsinterval 1 logs a best-range
-    line (the CPU mesh compile alone guarantees >1 s of wall)."""
+    line."""
+    import functools
+    import logging
+
+    from gnuais_tpu import cli
+    from gnuais_tpu.io.sinks import NmeaSocketServer
+
     rng = np.random.default_rng(89)
     payloads = [E.make_type123(1, 230000000 + i, 60.0 + 0.01 * i, 25.0)
                 for i in range(30)]
@@ -90,13 +110,19 @@ def test_range_log_appears_in_mesh_run(tmp_path):
                     -32768, 32767).astype(np.int16)
     cap = tmp_path / "pos.raw"
     noisy.tofile(cap)
+    conf = tmp_path / "mesh.conf"
+    conf.write_text(f"soundchannels mono\nmeshshape 1 2\ntimeparblock 4096\n"
+                    f"statsinterval 1\nlatitude 59.0\nlongitude 24.0\n"
+                    f"soundinfile {cap}\n")
+    monkeypatch.setattr(cli, "time_mod", _TickingClock())
+    monkeypatch.setattr(cli, "NmeaSocketServer", functools.partial(
+        NmeaSocketServer, path=str(tmp_path / "gnuais.socket")))
+    caplog.set_level(logging.INFO, logger="gnuais")
 
-    r = _run_cli(f"soundchannels mono\nmeshshape 1 2\ntimeparblock 4096\n"
-                 f"statsinterval 1\nlatitude 59.0\nlongitude 24.0\n"
-                 f"soundinfile {cap}\n", tmp_path, "mesh.conf")
-    assert r.stdout.splitlines(), "fixture decoded nothing"
-    assert re.search(r"Best range ch A: \d+\.\d km", r.stderr), \
-        r.stderr[-800:]
+    assert cli.main(["-c", str(conf)]) == 0
+    assert capsys.readouterr().out.splitlines(), "fixture decoded nothing"
+    assert re.search(r"Best range ch A: \d+\.\d km", caplog.text), \
+        caplog.text[-800:]
 
 
 def test_lanes_guard_falls_back_on_squelched_capture(tmp_path):

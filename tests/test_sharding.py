@@ -51,18 +51,18 @@ def test_stream_sharded_matches_unsharded():
 
 @needs_mesh
 def test_stream_sharded_kernel_compact_matches():
-    """The in-kernel-compaction path inside a shard_map body (the bench
-    scaling configuration) must equal the unsharded compact decode —
-    the compaction is per-lane state, so sharding cannot perturb it."""
+    """The fused kernel (frames land compacted in their slots inside
+    the kernel) in a shard_map body over the 8 virtual devices must
+    equal the unsharded plain chain — per-stream state only, so
+    sharding cannot perturb it."""
     s, t = 8, 8192
     batch = _batch(s, t)
     mesh = M.make_stream_mesh()
     fn = make_sharded_decode(mesh, frame_slots=16, fused_pipeline=True,
-                             kernel_compact=True)
+                             interpret=True)
     c1, f1, _ = fn(jnp.asarray(batch), jnp.int32(t), pl.init_carry(s))
     c2, f2, _ = pl.decode_block(jnp.asarray(batch), jnp.int32(t),
-                                pl.init_carry(s), frame_slots=16,
-                                fused_pipeline=True, kernel_compact=True)
+                                pl.init_carry(s), frame_slots=16)
     for name in f1._fields:
         assert np.array_equal(np.asarray(getattr(f1, name)),
                               np.asarray(getattr(f2, name))), name

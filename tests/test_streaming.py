@@ -1,7 +1,6 @@
 """Pipelined streaming decoder: order, equivalence, and carry safety."""
 
 import numpy as np
-import pytest
 
 from gnuais_tpu.golden import encoder as E
 from gnuais_tpu.runtime.pipeline import BatchPipeline
@@ -44,10 +43,9 @@ def test_pipelined_matches_sequential():
                                   b.payload_bits[:b.bufferlen])
 
 
-@pytest.mark.slow
 def test_pipelined_fused_pipeline_matches_sequential():
-    """The flagship fused kernel must be reachable from the
-    overlap-ingest path (not just bench.py)."""
+    """The fused kernel must be reachable from the overlap-ingest path
+    (not just bench.py)."""
     rng = np.random.default_rng(2)
     payloads = [E.random_payload(rng) for _ in range(10)]
     audio = E.synthesize_capture(payloads, gap_bits=40)
@@ -60,7 +58,7 @@ def test_pipelined_fused_pipeline_matches_sequential():
             seq_frames[i].extend(fr)
 
     piped = PipelinedDecoder(s, block_len=bl, frame_slots=64, depth=2,
-                             fused_pipeline=True)
+                             fused_pipeline=True, interpret=True)
     piped_frames = [[] for _ in range(s)]
     for per_block in piped.run(_blocks(audio, s, bl)):
         for i, fr in enumerate(per_block):

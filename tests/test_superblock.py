@@ -4,7 +4,6 @@ frames, counters, carries, and absolute start positions — including
 frames straddling the inner block seams and a short (masked) tail."""
 
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +11,7 @@ import jax.numpy as jnp
 from gnuais_tpu.golden import encoder as E
 from gnuais_tpu.runtime.pipeline import (BatchPipeline, decode_block,
                                          decode_superblock, init_carry)
-from tests.test_fused_pipeline import (_carry_equal, _frames_equal,
-                                       _noisy_batch)
+from tests.parity_utils import carry_equal, frames_equal, noisy_batch
 
 
 def _check_superblock_vs_sequential(x, t, k, nv_total, **flags):
@@ -33,76 +31,28 @@ def _check_superblock_vs_sequential(x, t, k, nv_total, **flags):
 
     for b in range(k):
         got = jax.tree.map(lambda a, b=b: a[b], frames_k)
-        _frames_equal(seq_frames[b], got)
-    _carry_equal(c_seq, c_sup)
+        frames_equal(seq_frames[b], got)
+    carry_equal(c_seq, c_sup)
 
 
 def test_superblock_exact_chain_seam_straddle():
     """Frames placed so several straddle the inner 1024-sample seams."""
     s, t, k = 4, 1024, 4
-    x = _noisy_batch(s, k * t, seed=5, n_payloads=5, gap_bits=24)
+    x = noisy_batch(s, k * t, seed=5, n_payloads=5, gap_bits=24)
     _check_superblock_vs_sequential(x, t, k, nv_total=k * t)
 
 
 def test_superblock_short_tail_masking():
     s, t, k = 3, 1024, 3
-    x = _noisy_batch(s, k * t, seed=8, n_payloads=4, gap_bits=32)
+    x = noisy_batch(s, k * t, seed=8, n_payloads=4, gap_bits=32)
     _check_superblock_vs_sequential(x, t, k, nv_total=2 * t + 700)
 
 
-@pytest.mark.slow
 def test_superblock_fused_pipeline():
     s, t, k = 2, 1024, 3
-    x = _noisy_batch(s, k * t, seed=2, n_payloads=4, gap_bits=24)
-    _check_superblock_vs_sequential(x, t, k, nv_total=k * t,
-                                    fused_pipeline=True)
-
-
-def test_superblock_pretiled_parity():
-    """decode_superblock(pretiled_streams=S) on tile_superblock'd input
-    must be bit-identical (frames + carry) to the row-major path — the
-    layout is the flagship throughput format (the in-dispatch relayout
-    passes it skips cost ~37% of the step at scale, profiled r5)."""
-    from gnuais_tpu.ops.fused import tile_superblock
-
-    s, t, k = 12, 2048, 3
-    x = _noisy_batch(s, k * t, seed=11, n_payloads=5, gap_bits=24)
-    flags = dict(frame_slots=16, fused_pipeline=True, assume_full=True,
-                 kernel_guarded=False)
-    c0 = init_carry(s)
-    c1, f1, _ = decode_superblock(jnp.asarray(x), jnp.int32(k * t), c0,
-                                  k, **flags)
-    xt = tile_superblock(jnp.asarray(x), k, 8)
-    c2, f2, _ = decode_superblock(xt, jnp.int32(k * t), c0, k,
-                                  with_peak=False, pretiled_streams=s,
-                                  **flags)
-    for b in range(k):
-        _frames_equal(jax.tree.map(lambda a, b=b: a[b], f1),
-                      jax.tree.map(lambda a, b=b: a[b], f2))
-    _carry_equal(c1, c2)
-
-    # single-grid long call: the kernel grid chains carry across time
-    # chunks natively, so the whole superblock decodes in ONE
-    # decode_block call with no scan — the flagship bench mode.  The
-    # merged frame sequence and the carry must match the stacked
-    # superblock exactly.
-    xf = tile_superblock(jnp.asarray(x), 1, 8)[0]
-    long_flags = dict(flags, frame_slots=48)
-    c3, f3, _ = decode_block(xf, jnp.int32(k * t), c0,
-                             with_peak=False, pretiled_streams=s,
-                             **long_flags)
-    f1h = jax.tree.map(np.asarray, f1)
-    f3h = jax.tree.map(np.asarray, f3)
-    for si in range(s):
-        ref = [(int(f1h.start[b, si, j]), int(f1h.end[b, si, j]),
-                int(f1h.length[b, si, j]), tuple(f1h.words[b, si, j]))
-               for b in range(k) for j in range(int(f1h.count[b, si]))]
-        got = [(int(f3h.start[si, j]), int(f3h.end[si, j]),
-                int(f3h.length[si, j]), tuple(f3h.words[si, j]))
-               for j in range(int(f3h.count[si]))]
-        assert ref == got, si
-    assert np.array_equal(f1h.lost2.sum(axis=0), f3h.lost2)
-    _carry_equal(c1, c3)
+    x = noisy_batch(s, k * t, seed=2, n_payloads=4, gap_bits=24)
+    _check_superblock_vs_sequential(x, t, k, nv_total=k * t - 300,
+                                    fused_pipeline=True, interpret=True)
 
 
 def test_batchpipeline_process_superblock_end_to_end():

@@ -10,7 +10,10 @@ exact seam hand-off), so the wall-clock latency at real time is
     latency_s  =  latency_samples / 48000  +  compute_time
 
 The harness reports both, for a set of meshshape / timeparblock
-configurations (the --low-latency knob = timeparblock 4096).
+configurations (the --low-latency knob = timeparblock 4096).  The
+latency is counted in samples, so the decoder runs on 8 virtual CPU
+devices; the harness itself stays off JAX and runs one decoder process
+at a time.
 
 Usage: latency_bench.py [--configs "1x8:6144 1x8:4096 1x2:4096"]
 """
